@@ -1,7 +1,8 @@
 """numpy <-> port bridges.
 
-Parameters cross between the JAX package and this port as numpy arrays, so
-both compute on identical inputs in the parity tests; the flagship scene is
+Parameters, statistic buffers, target images and the optimizer state cross
+between the JAX package and this port as numpy arrays, so both compute on
+identical inputs in the parity tests; the flagship scene is
 rebuilt here in numpy, array for array as `__graft_entry__._scene` builds
 it, so the port can render it without importing the JAX package.
 """
@@ -14,28 +15,60 @@ import numpy as np
 import torch
 
 from .core.camera import Camera
-from .core.gaussians import Gaussians
-
-PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
-               "opacity")
+from .core.gaussians import PARAM_NAMES, STAT_NAMES, Gaussians
+from .train.optimizer import AdamState
 
 
-def gaussians_from_numpy(params: dict, alive, device="cpu") -> Gaussians:
+def gaussians_from_numpy(params: dict, alive, device="cpu",
+                         stats: dict = None) -> Gaussians:
     """Slot pool from full-capacity numpy arrays named as in PARAM_NAMES
-    (the JAX `Gaussians.params()` keys) plus the [C] `alive` mask."""
+    (the JAX `Gaussians.params()` keys) plus the [C] `alive` mask and,
+    optionally, the statistic buffers named as in STAT_NAMES (zeros when
+    left out)."""
     f32 = dict(dtype=torch.float32, device=device)
+    as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), **f32)
     return Gaussians(
-        **{k: torch.as_tensor(np.asarray(params[k], np.float32), **f32)
-           for k in PARAM_NAMES},
+        **{k: as_f32(params[k]) for k in PARAM_NAMES},
+        **{k: as_f32(stats[k]) for k in STAT_NAMES if stats is not None},
         alive=torch.as_tensor(np.asarray(alive, bool), device=device))
 
 
+def gaussians_to_numpy(g: Gaussians):
+    """(params, alive, stats) as numpy arrays: the inverse of
+    `gaussians_from_numpy`."""
+    n = lambda t: t.detach().cpu().numpy()
+    return ({k: n(getattr(g, k)) for k in PARAM_NAMES}, n(g.alive),
+            {k: n(getattr(g, k)) for k in STAT_NAMES})
+
+
+def adam_state_from_numpy(count: int, mu: dict, nu: dict, sched_count: int,
+                          device="cpu") -> AdamState:
+    """The port's Adam state from optax's slots: `count`, `mu` and `nu` of
+    `ScaleByAdamState` (dicts keyed as PARAM_NAMES) and the count of
+    `ScaleByScheduleState`."""
+    f32 = dict(dtype=torch.float32, device=device)
+    as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), **f32)
+    return AdamState(count=int(count), sched_count=int(sched_count),
+                     mu={k: as_f32(v) for k, v in mu.items()},
+                     nu={k: as_f32(v) for k, v in nu.items()})
+
+
+def adam_state_to_numpy(state: AdamState) -> dict:
+    """dict(count, sched_count, mu, nu) with numpy moments: the inverse of
+    `adam_state_from_numpy`."""
+    n = lambda t: t.detach().cpu().numpy()
+    return dict(count=state.count, sched_count=state.sched_count,
+                mu={k: n(v) for k, v in state.mu.items()},
+                nu={k: n(v) for k, v in state.nu.items()})
+
+
 def camera_from_numpy(R, T, FoVx, FoVy, width: int, height: int,
-                      uid: int = 0, device="cpu") -> Camera:
+                      uid: int = 0, device="cpu", image=None) -> Camera:
     """Camera from a camera->world rotation, a world-frame center and
-    float32 FoVs (as the JAX `Camera.create` takes them)."""
+    float32 FoVs (as the JAX `Camera.create` takes them), with an optional
+    [3,H,W] target image."""
     return Camera.create(uid, R, T, FoVx, FoVy, width=width, height=height,
-                         device=device)
+                         device=device, image=image)
 
 
 def flagship_scene_numpy(capacity: int = 2048, n: int = 1024,

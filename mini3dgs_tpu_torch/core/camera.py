@@ -8,7 +8,9 @@ by ~1e-7 relative, enough to flip the toward-zero truncation in binning.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -56,16 +58,22 @@ class Camera:
     image_name: str = ""
     znear: float = 0.1
     zfar: float = 1000.0
+    image: Optional[torch.Tensor] = None  # [3,H,W] target image or None
+
+    def replace(self, **changes) -> "Camera":
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def create(cls, uid: int, R, T, FoVx: float, FoVy: float, width: int,
                height: int, image_name: str = "", znear: float = 0.1,
-               zfar: float = 1000.0, device="cpu") -> "Camera":
+               zfar: float = 1000.0, device="cpu", image=None) -> "Camera":
         R = np.asarray(R, dtype=np.float32).reshape(3, 3)
         T = np.asarray(T, dtype=np.float32).reshape(3)
         view = build_world_view_matrix(R, T, from_c2w=True)
         f32 = dict(dtype=torch.float32, device=device)
-        return cls(R=torch.as_tensor(R, **f32), T=torch.as_tensor(T, **f32),
+        if image is not None:
+            image = torch.as_tensor(image, **f32)
+        return cls(image=image, R=torch.as_tensor(R, **f32), T=torch.as_tensor(T, **f32),
                    view_matrix=view.to(device),
                    FoVx=torch.tensor(np.float32(FoVx), **f32),
                    FoVy=torch.tensor(np.float32(FoVy), **f32),

@@ -7,13 +7,18 @@ tiny scales and are culled by the projection.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import math
+from dataclasses import dataclass, field
 
 import torch
 
 from .transforms import normalize_quat
 
 SH_REST = 15  # degree <= 3: 16 coefficients per channel, 1 DC + 15 rest
+PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+               "opacity")
+STAT_NAMES = ("xyz_gradient_accum", "denom", "max_radii2D")
 
 
 @dataclass
@@ -27,6 +32,18 @@ class Gaussians:
     rotation: torch.Tensor       # [C,4] wxyz quaternion (unnormalized)
     opacity: torch.Tensor        # [C,1] logit
     alive: torch.Tensor          # [C] bool
+    # Densification statistics, accumulated per train step
+    # (train/density.py); zeros when not given.
+    xyz_gradient_accum: torch.Tensor = field(default=None)  # [C]
+    denom: torch.Tensor = field(default=None)               # [C]
+    max_radii2D: torch.Tensor = field(default=None)         # [C]
+
+    def __post_init__(self):
+        for name in STAT_NAMES:
+            if getattr(self, name) is None:
+                setattr(self, name, torch.zeros(
+                    self.xyz.shape[0], dtype=torch.float32,
+                    device=self.xyz.device))
 
     @property
     def get_scaling(self) -> torch.Tensor:
@@ -55,3 +72,31 @@ class Gaussians:
 
     def num_alive(self) -> int:
         return int(self.alive.sum())
+
+    def params(self) -> dict:
+        """The trainable tensors (what the optimizer updates)."""
+        return {k: getattr(self, k) for k in PARAM_NAMES}
+
+    def with_params(self, p: dict) -> "Gaussians":
+        return self.replace(**{k: p[k] for k in PARAM_NAMES})
+
+    def replace(self, **changes) -> "Gaussians":
+        return dataclasses.replace(self, **changes)
+
+
+def reset_opacity(g: Gaussians, new_opacity: float = 0.01) -> Gaussians:
+    """Clamp alive opacities down to logit(new_opacity); the reset never
+    raises a nearly transparent splat back above the prune threshold."""
+    val = min(max(new_opacity, 1e-4), 1 - 1e-4)
+    logit = math.log(val / (1 - val))
+    new = torch.where(g.alive[:, None], torch.clamp(g.opacity, max=logit),
+                      g.opacity)
+    return g.replace(opacity=new)
+
+
+def scene_extent_of(g: Gaussians) -> torch.Tensor:
+    """Mean axis range of the alive points."""
+    alive = g.alive[:, None]
+    big = torch.where(alive, g.xyz, torch.full_like(g.xyz, -torch.inf))
+    small = torch.where(alive, g.xyz, torch.full_like(g.xyz, torch.inf))
+    return (big.max(0).values - small.min(0).values).mean()

@@ -1,4 +1,5 @@
-// Forward tile rasterizer for Hopper (sm_90a).
+// Forward tile rasterizer for Hopper (sm_90a).  Its backward is
+// raster_bwd.cu, which replays the same alpha and gate arithmetic.
 //
 // Replaces the TPU kernel mini3dgs_tpu/ops/raster_pallas.py `_fwd_kernel`
 // (built by `_make_raster_op` with has_t0=False and called from
@@ -26,10 +27,10 @@
 // when all its pixels have stopped.  Every tile writes all 8 rows, so the
 // output needs no zero fill.
 //
-// Bound: each pixel x instance pair costs one expf plus ~15 FLOPs; the
-// stream is read once per tile (40 bytes per instance) and shared by its P
-// pixels, so the kernel is bound by FP32/SFU instruction throughput, not
-// by memory.
+// Bound: each pixel x instance pair costs one expf plus ~30 FP32 operations
+// (an FMA as two); the stream is read once per tile (40 bytes per instance)
+// and shared by its P pixels, so the kernel is bound by FP32/SFU instruction
+// throughput, not by memory.
 //
 // The TPU's log-space prefix (1e-30 floor) and this running product round
 // differently, so the early stop can flip on isolated pixels, each by at

@@ -1,13 +1,14 @@
-"""Tile rasterization through the hand-written CUDA forward kernel
-(counterpart of mini3dgs_tpu/ops/raster_pallas.py, forward only).
+"""Tile rasterization through the hand-written CUDA kernels (counterpart of
+mini3dgs_tpu/ops/raster_pallas.py).
 
-`raster_fwd` is the kernel's wrapper: on CUDA tensors it launches
-`csrc/raster_fwd.cu` (built with nvcc for sm_90a at first use into
-`build/kernels/`, loaded with ctypes); on CPU tensors it runs the plain
-PyTorch version `raster_fwd_plain`, which computes the same [T, 8, P] raw
-accumulators and is what the kernel is held against on the card.
-`rasterize_tiles` is the renderer's tile path: binning -> pack -> kernel ->
-epilogue.
+`raster_fwd` and `raster_bwd` are the kernels' wrappers: on CUDA tensors
+they launch `csrc/raster_fwd.cu` and `csrc/raster_bwd.cu` (built with nvcc
+for sm_90a at first use into one library in `build/kernels/`, loaded with
+ctypes); on CPU tensors they run the plain PyTorch versions
+`raster_fwd_plain` and `raster_bwd_plain`, which compute the same function
+and are what the kernels are held against on the card.  `raster_op` joins
+the pair into one differentiable function, and `rasterize_tiles` is the
+renderer's tile path: binning -> pack -> raster_op -> epilogue.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from pathlib import Path
 from typing import Callable, NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.profiler import record_function
 
 from . import binning as B
 from .projection import Projected
@@ -31,10 +34,10 @@ from .raster_ref import EARLY_STOP_A, W_EPS
 N_ACC = 8  # accumulator rows: r, g, b, depth, alpha, 3 zero rows
 KERNEL_TILE_SIZES = (16, 32)
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "raster_fwd.cu"
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def instance_attrs(proj: Projected) -> torch.Tensor:
@@ -60,18 +63,47 @@ def _pixel_coords(num_tiles, tiles_x, tile_size, device):
     return px.float(), py.float()
 
 
+def _slice_terms(stream, start, count, px, py, trans, base, lanes):
+    """The per-pixel terms of one slice of every tile's instance list,
+    instances base .. base + len(lanes) of each tile: [T, P, G] tensors (and
+    `valid` [T, G], `idx` [T, G] stream columns, `row(r)` [T, 1, G]), with
+    the transmittance as a cumulative product within the slice, seeded by
+    the carried `trans` [T, P]."""
+    j = base + lanes
+    valid = j < count                                       # [T, G]
+    idx = (start + j).clamp(max=stream.shape[1] - 1)
+    ch = stream[:, idx]                                     # [10, T, G]
+    row = lambda r: ch[r][:, None, :]                       # [T, 1, G]
+    dx = px[:, :, None] - row(B.ROW_X)                      # [T, P, G]
+    dy = py[:, :, None] - row(B.ROW_Y)
+    lw = dx * dx * row(B.ROW_QA) + dx * dy * row(B.ROW_QB) \
+        + dy * dy * row(B.ROW_QC)
+    w = torch.clamp(torch.exp(lw), max=1.0)
+    a_raw = row(B.ROW_OP) * w
+    live = (w >= W_EPS) & valid[:, None, :]
+    alpha = torch.where(live, torch.clamp(a_raw, max=1.0),
+                        torch.zeros_like(w))
+    cp = torch.cumprod(1.0 - alpha, dim=-1)
+    T_before = trans[:, :, None] * torch.cat(
+        [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+    gate = (1.0 - T_before) < EARLY_STOP_A
+    return dict(row=row, valid=valid, idx=idx, dx=dx, dy=dy, w=w,
+                a_raw=a_raw, live=live, alpha=alpha, T_before=T_before,
+                gate=gate, wgt=T_before * alpha * gate,
+                trans=trans * cp[..., -1])
+
+
 def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                      tile_count: torch.Tensor, tiles_x: int, tile_size: int,
                      chunk: int = 64) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: all tiles at once, one
-    `chunk`-wide slice of every tile's instance list per step, transmittance
-    as a cumulative product within the slice.  Returns [T, 8, P] float32."""
+    `chunk`-wide slice of every tile's instance list per step.  Returns
+    [T, 8, P] float32."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
     dev = stream.device
     out = torch.zeros(T, N_ACC, P, dtype=torch.float32, device=dev)
-    L = stream.shape[1]
-    if T == 0 or L == 0:
+    if T == 0 or stream.shape[1] == 0:
         return out
     px, py = _pixel_coords(T, tiles_x, tile_size, dev)
     start = tile_start.long()[:, None]
@@ -83,28 +115,73 @@ def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
     for base in range(0, int(tile_count.max()), chunk):
         if not bool(((1.0 - trans) < EARLY_STOP_A).any()):
             break  # every gate is closed: the rest contributes exactly 0
-        j = base + lanes
-        valid = j < count                                   # [T, G]
-        ch = stream[:, (start + j).clamp(max=L - 1)]        # [10, T, G]
-        row = lambda r: ch[r][:, None, :]                   # [T, 1, G]
-        dx = px[:, :, None] - row(B.ROW_X)                  # [T, P, G]
-        dy = py[:, :, None] - row(B.ROW_Y)
-        lw = dx * dx * row(B.ROW_QA) + dx * dy * row(B.ROW_QB) \
-            + dy * dy * row(B.ROW_QC)
-        w = torch.clamp(torch.exp(lw), max=1.0)
-        alpha = torch.where((w >= W_EPS) & valid[:, None, :],
-                            torch.clamp(row(B.ROW_OP) * w, max=1.0),
-                            torch.zeros_like(w))
-        cp = torch.cumprod(1.0 - alpha, dim=-1)
-        T_before = trans[:, :, None] * torch.cat(
-            [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
-        contrib = T_before * alpha * ((1.0 - T_before) < EARLY_STOP_A)
+        m = _slice_terms(stream, start, count, px, py, trans, base, lanes)
         for k, r in enumerate((B.ROW_R, B.ROW_G, B.ROW_B, B.ROW_DEPTH)):
-            acc[k] = acc[k] + (contrib * row(r)).sum(-1)
-        acc[4] = acc[4] + contrib.sum(-1)
-        trans = trans * cp[..., -1]
+            acc[k] = acc[k] + (m["wgt"] * m["row"](r)).sum(-1)
+        acc[4] = acc[4] + m["wgt"].sum(-1)
+        trans = m["trans"]
     out[:, :5] = torch.stack(acc, dim=1)
     return out
+
+
+@torch.no_grad()
+def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
+                     tile_count: torch.Tensor, tiles_x: int, tile_size: int,
+                     acc: torch.Tensor, gout: torch.Tensor,
+                     chunk: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel, written by hand with
+    the kernel's masks (not derived by autograd: `torch.clamp` gives the
+    whole gradient at an exact tie op*w == 1 or w == 1, the kernel none).
+    `acc` [T, 8, P] are the forward accumulators, `gout` their cotangent.
+    Returns d_stream [STREAM_ROWS, n_live]: per pixel, with
+    u_j = <gout[rgbd], c_j> + gout_alpha and S_j = <gout, acc> -
+    sum_{i<=j} u_i wgt_i,
+        d_alpha_j = u_j T_j - S_j / (1 - alpha_j)   while the gate is open,
+    chained through alpha = min(op w, 1) (w >= 1e-5) and w = min(exp lw, 1),
+    and summed over the tile's pixels.  A pixel whose gate has closed gives
+    every later instance exactly 0."""
+    T = tile_start.shape[0]
+    P = tile_size * tile_size
+    dev = stream.device
+    d_stream = torch.zeros_like(stream)
+    if T == 0 or stream.shape[1] == 0:
+        return d_stream
+    px, py = _pixel_coords(T, tiles_x, tile_size, dev)
+    start = tile_start.long()[:, None]
+    count = tile_count.long()[:, None]
+    g_r, g_g, g_b, g_d, g_a = (gout[:, k, :, None] for k in range(5))
+    total = (gout[:, :5] * acc[:, :5]).sum(1)[:, :, None]   # [T, P, 1]
+    trans = torch.ones(T, P, dtype=torch.float32, device=dev)
+    prefix = torch.zeros(T, P, 1, dtype=torch.float32, device=dev)
+    lanes = torch.arange(chunk, device=dev)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for base in range(0, int(tile_count.max()), chunk):
+        if not bool(((1.0 - trans) < EARLY_STOP_A).any()):
+            break  # the rows behind stay exactly 0
+        m = _slice_terms(stream, start, count, px, py, trans, base, lanes)
+        row, dx, dy, w, wgt = m["row"], m["dx"], m["dy"], m["w"], m["wgt"]
+        u = (g_r * row(B.ROW_R) + g_g * row(B.ROW_G) + g_b * row(B.ROW_B)
+             + g_d * row(B.ROW_DEPTH) + g_a)
+        incl = torch.cumsum(u * wgt, dim=-1) + prefix
+        mask = m["gate"] & m["live"] & (m["a_raw"] < 1.0) & (m["a_raw"] > 0.0)
+        d_alpha = torch.where(
+            mask, u * m["T_before"] - (total - incl) / (1.0 - m["alpha"]),
+            zero)
+        d_lw = torch.where(w < 1.0, w * d_alpha * row(B.ROW_OP), zero)
+        qa, qb, qc = row(B.ROW_QA), row(B.ROW_QB), row(B.ROW_QC)
+        rows = torch.stack([
+            -(d_lw * (2.0 * dx * qa + dy * qb)).sum(1),
+            -(d_lw * (2.0 * dy * qc + dx * qb)).sum(1),
+            (d_lw * dx * dx).sum(1), (d_lw * dx * dy).sum(1),
+            (d_lw * dy * dy).sum(1),
+            (d_alpha * w).sum(1),
+            (g_r * wgt).sum(1), (g_g * wgt).sum(1), (g_b * wgt).sum(1),
+            (g_d * wgt).sum(1)])                            # [10, T, G]
+        valid = m["valid"]
+        d_stream[:, m["idx"][valid]] = rows[:, valid]
+        trans = m["trans"]
+        prefix = incl[..., -1:]
+    return d_stream
 
 
 class KernelLibrary(NamedTuple):
@@ -120,34 +197,108 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
-                       "CUDA raster kernel cannot be built")
+                       "CUDA raster kernels cannot be built")
+
+
+def kernel_sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _build(path: Path) -> str:
+    """Compile every source to an object file, all nvcc processes started
+    together, then link them into `path`.  Returns the compilers' output."""
+    nvcc = _nvcc()
+    sources = kernel_sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        log = "".join(proc.communicate()[0] for proc in procs)
+        for proc, src in zip(procs, sources):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{log}")
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return log
 
 
 @functools.cache
 def kernel_library() -> KernelLibrary:
-    """Build (once per source and flag set) and load the kernel library."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"raster_fwd-{tag}.so"
+    """Build (once per set of sources and flags) and load the library that
+    holds every kernel of `csrc/`."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in kernel_sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    path = BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    fn = lib.raster_fwd_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.raster_fwd_launch.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, i32,
+                                      i32, i32, ptr, ptr]
+    lib.raster_bwd_launch.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, i32,
+                                      i32, i32, ptr, ptr, ptr, ptr]
+    lib.raster_fwd_launch.restype = lib.raster_bwd_launch.restype = i32
     return KernelLibrary(lib, path, seconds, log)
+
+
+def _check_raster_args(name, stream, tile_start, tile_count, tiles_x,
+                       tile_size, *accs) -> torch.device:
+    """Raise on what the kernels do not take; returns the common device.
+    `accs` are [T, 8, P] float32 tensors (accumulators, cotangent)."""
+    T = tile_start.shape[0]
+    if stream.dtype != torch.float32 or stream.dim() != 2 \
+            or stream.shape[0] != B.STREAM_ROWS:
+        raise ValueError(f"stream must be float32 [{B.STREAM_ROWS}, n], got "
+                         f"{stream.dtype} {tuple(stream.shape)}")
+    for what, v in (("tile_start", tile_start), ("tile_count", tile_count)):
+        if v.dtype != torch.int32 or v.shape != (T,):
+            raise ValueError(f"{what} must be int32 [{T}], got {v.dtype} "
+                             f"{tuple(v.shape)}")
+    if T % tiles_x:
+        raise ValueError(f"{T} tiles is not a whole number of rows of "
+                         f"{tiles_x}")
+    shape = (T, N_ACC, tile_size * tile_size)
+    for v in accs:
+        if v.dtype != torch.float32 or v.shape != shape:
+            raise ValueError(f"accumulators must be float32 {shape}, got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    devices = {v.device for v in (stream, tile_start, tile_count, *accs)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    device = stream.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    if device.type == "cuda":
+        if tile_size not in KERNEL_TILE_SIZES:
+            raise ValueError(f"the CUDA kernels support tile sizes "
+                             f"{KERNEL_TILE_SIZES}, not {tile_size}")
+        if not (stream.is_contiguous() and tile_start.is_contiguous()
+                and tile_count.is_contiguous()):
+            raise ValueError(f"{name} needs contiguous tensors")
+        if T and int((tile_start.long() + tile_count).max()) \
+                > stream.shape[1]:
+            raise ValueError("a tile range reaches past the end of the "
+                             "stream")
+    return device
 
 
 def raster_fwd(stream: torch.Tensor, tile_start: torch.Tensor,
@@ -156,46 +307,19 @@ def raster_fwd(stream: torch.Tensor, tile_start: torch.Tensor,
     """Raw per-tile accumulators [T, 8, P] of the instance stream
     [STREAM_ROWS, n_live].  CPU tensors take `raster_fwd_plain`; CUDA
     tensors launch the kernel (and count the launch in
-    `raster_fwd.launches`) or raise."""
-    T = tile_start.shape[0]
-    if stream.dtype != torch.float32 or stream.dim() != 2 \
-            or stream.shape[0] != B.STREAM_ROWS:
-        raise ValueError(f"stream must be float32 [{B.STREAM_ROWS}, n], got "
-                         f"{stream.dtype} {tuple(stream.shape)}")
-    for name, v in (("tile_start", tile_start), ("tile_count", tile_count)):
-        if v.dtype != torch.int32 or v.shape != (T,):
-            raise ValueError(f"{name} must be int32 [{T}], got {v.dtype} "
-                             f"{tuple(v.shape)}")
-    if T % tiles_x:
-        raise ValueError(f"{T} tiles is not a whole number of rows of "
-                         f"{tiles_x}")
-    devices = {stream.device, tile_start.device, tile_count.device}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {devices}")
-    device = stream.device
+    `raster_fwd.launches`) or raise.  The kernel's output carries no
+    autograd graph: `raster_op` is the differentiable function."""
+    device = _check_raster_args("raster_fwd", stream, tile_start, tile_count,
+                                tiles_x, tile_size)
     if device.type == "cpu":
         return raster_fwd_plain(stream, tile_start, tile_count, tiles_x,
                                 tile_size)
-    if device.type != "cuda":
-        raise ValueError(f"raster_fwd runs on cpu or cuda, not {device}")
-    if torch.is_grad_enabled() and stream.requires_grad:
-        raise NotImplementedError(
-            "raster_fwd has no backward kernel yet; call it under "
-            "torch.no_grad() or on a stream that does not require grad")
-    if tile_size not in KERNEL_TILE_SIZES:
-        raise ValueError(f"the CUDA kernel supports tile sizes "
-                         f"{KERNEL_TILE_SIZES}, not {tile_size}")
-    if not (stream.is_contiguous() and tile_start.is_contiguous()
-            and tile_count.is_contiguous()):
-        raise ValueError("raster_fwd needs contiguous tensors")
-    n_live = stream.shape[1]
-    if T and int((tile_start.long() + tile_count).max()) > n_live:
-        raise ValueError("a tile range reaches past the end of the stream")
+    T = tile_start.shape[0]
     lib = kernel_library().lib
     out = torch.empty(T, N_ACC, tile_size * tile_size, dtype=torch.float32,
                       device=device)
     rc = lib.raster_fwd_launch(
-        stream.data_ptr(), n_live, tile_start.data_ptr(),
+        stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
         tile_count.data_ptr(), T, tiles_x, tile_size, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
@@ -207,29 +331,101 @@ def raster_fwd(stream: torch.Tensor, tile_start: torch.Tensor,
 raster_fwd.launches = 0
 
 
+def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
+               tile_count: torch.Tensor, tiles_x: int, tile_size: int,
+               acc: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+    """Gradient [STREAM_ROWS, n_live] of the instance stream from the
+    cotangent `gout` [T, 8, P] of the forward accumulators `acc`.  CPU
+    tensors take `raster_bwd_plain`; CUDA tensors launch the kernel (and
+    count the launch in `raster_bwd.launches`) or raise."""
+    device = _check_raster_args("raster_bwd", stream, tile_start, tile_count,
+                                tiles_x, tile_size, acc, gout)
+    # The cotangent arrives through the epilogue's permute and slice.
+    acc, gout = acc.contiguous(), gout.contiguous()
+    if device.type == "cpu":
+        return raster_bwd_plain(stream, tile_start, tile_count, tiles_x,
+                                tile_size, acc, gout)
+    lib = kernel_library().lib
+    # Zero-filled: the kernel leaves the rows behind a tile's early exit,
+    # and any column no tile range covers, unwritten.
+    d_stream = torch.zeros_like(stream)
+    rc = lib.raster_bwd_launch(
+        stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
+        tile_count.data_ptr(), tile_start.shape[0], tiles_x, tile_size,
+        acc.data_ptr(), gout.data_ptr(), d_stream.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {rc}")
+    raster_bwd.launches += 1
+    return d_stream
+
+
+raster_bwd.launches = 0
+
+
+class _RasterOp(torch.autograd.Function):
+    """`raster_fwd` with `raster_bwd` as its gradient, on either device."""
+
+    @staticmethod
+    def forward(ctx, stream, tile_start, tile_count, tiles_x, tile_size):
+        acc = raster_fwd(stream, tile_start, tile_count, tiles_x, tile_size)
+        ctx.save_for_backward(stream, tile_start, tile_count, acc)
+        ctx.tiles_x, ctx.tile_size = tiles_x, tile_size
+        return acc
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        stream, tile_start, tile_count, acc = ctx.saved_tensors
+        with record_function("3dgs:raster_bwd"):
+            d_stream = raster_bwd(stream, tile_start, tile_count, ctx.tiles_x,
+                                  ctx.tile_size, acc, gout)
+        return d_stream, None, None, None, None
+
+
+def raster_op(stream: torch.Tensor, tile_start: torch.Tensor,
+              tile_count: torch.Tensor, tiles_x: int,
+              tile_size: int) -> torch.Tensor:
+    """Differentiable (once) raw accumulators [T, 8, P]: `raster_fwd`
+    forward, `raster_bwd` backward."""
+    return _RasterOp.apply(stream, tile_start, tile_count, tiles_x,
+                           tile_size)
+
+
 def tile_stream(proj: Projected, H: int, W: int, tile_size: int):
     """Binning and pack: returns (Binning, stream [STREAM_ROWS, n_live])."""
-    b = B.bin_gaussians(proj, H, W, tile_size)
-    return b, B.pack_instances(instance_attrs(proj), b)
+    with record_function("3dgs:binning"):
+        b = B.bin_gaussians(proj, H, W, tile_size)
+    with record_function("3dgs:pack"):
+        return b, B.pack_instances(instance_attrs(proj), b)
 
 
-def rasterize_tiles(proj: Projected, H: int, W: int, bg: torch.Tensor, *,
-                    tile_size: int = 16,
-                    fwd: Callable = raster_fwd) -> dict:
-    """Tile raster path: binning -> pack -> `fwd` (the kernel wrapper by
-    default; `raster_fwd_plain` to compare against it) -> epilogue."""
+def compose_image(acc: torch.Tensor, H: int, W: int, tile_size: int,
+                  bg: torch.Tensor):
+    """The epilogue: raw accumulators [T, 8, P] -> (image [3,H,W] over the
+    background `bg`, alpha [1,H,W], depth [1,H,W])."""
     tiles_x = -(-W // tile_size)
     tiles_y = -(-H // tile_size)
-    b, stream = tile_stream(proj, H, W, tile_size)
-    acc = fwd(stream, b.tile_start, b.tile_count, tiles_x, tile_size)
-
     img = acc.reshape(tiles_y, tiles_x, N_ACC, tile_size, tile_size)
     img = img.permute(2, 0, 3, 1, 4).reshape(
         N_ACC, tiles_y * tile_size, tiles_x * tile_size)[:, :H, :W]
     rgb, D, A = img[0:3], img[3], img[4]
     image = torch.clamp(rgb + (1.0 - A)[None] * bg[:, None, None], 0.0, 1.0)
-    alpha = torch.clamp(A, 0.0, 1.0)[None]
-    depth = (D / (A + 1e-6))[None]
+    return image, torch.clamp(A, 0.0, 1.0)[None], (D / (A + 1e-6))[None]
+
+
+def rasterize_tiles(proj: Projected, H: int, W: int, bg: torch.Tensor, *,
+                    tile_size: int = 16,
+                    fwd: Callable = raster_op) -> dict:
+    """Tile raster path: binning -> pack -> `fwd` (the kernel pair by
+    default; `raster_fwd_plain` to compare against it) -> epilogue.
+    Differentiable with respect to the fields of `proj`."""
+    b, stream = tile_stream(proj, H, W, tile_size)
+    with record_function("3dgs:raster_fwd"):
+        acc = fwd(stream, b.tile_start, b.tile_count, -(-W // tile_size),
+                  tile_size)
+    with record_function("3dgs:epilogue"):
+        image, alpha, depth = compose_image(acc, H, W, tile_size, bg)
     return {"image": image, "alpha": alpha, "depth": depth,
             "n_dropped": b.n_dropped, "n_dropped_large": b.n_dropped_large,
             "n_large": b.n_large, "n_live": b.n_live}

@@ -1,5 +1,6 @@
 """Golden rasterizer: exact reference compositing semantics in plain torch
-(counterpart of mini3dgs_tpu/ops/raster_ref.py, forward only).
+(counterpart of mini3dgs_tpu/ops/raster_ref.py); autograd differentiates
+it.
 
 Per pixel, in ascending-depth order: s = d^T Q d, w = clamp(exp(-0.5 s),
 0, 1), skip w < 1e-5, alpha = clamp(op*w, 0, 1), contrib = T*alpha,
@@ -17,6 +18,7 @@ mode and the port's own oracle.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 EARLY_STOP_A = 0.995
 W_EPS = 1e-5
@@ -106,10 +108,21 @@ def rasterize_image(means2d, conic, depth, color, opacity, visible,
         torch.arange(height, dtype=torch.float32, device=dev),
         torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
     px, py = xs.reshape(-1), ys.reshape(-1)
-    parts = [rasterize_pixels(px[i:i + pixel_block], py[i:i + pixel_block],
-                              means2d, conic, depth, color, opacity, visible,
-                              chunk=chunk, tile_bounds=tile_bounds,
-                              tile_size=tile_size)
+    def block(bx, by, means2d, conic, depth, color, opacity):
+        return rasterize_pixels(bx, by, means2d, conic, depth, color,
+                                opacity, visible, chunk=chunk,
+                                tile_bounds=tile_bounds, tile_size=tile_size)
+
+    # Under autograd every block is recomputed in the backward pass, so
+    # only one block's [pixels, Gaussians] intermediates are alive at once.
+    differentiable = (means2d, conic, depth, color, opacity)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in differentiable):
+        run = lambda *a: checkpoint(block, *a, use_reentrant=False)
+    else:
+        run = block
+    parts = [run(px[i:i + pixel_block], py[i:i + pixel_block],
+                 *differentiable)
              for i in range(0, px.shape[0], pixel_block)]
     rgb, A, D = (torch.cat(p, dim=0) for p in zip(*parts))
     image = rgb + (1.0 - A)[:, None] * bg[None, :]

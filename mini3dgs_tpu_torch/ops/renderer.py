@@ -1,19 +1,22 @@
 """Renderer: projection -> cull -> sort -> tile raster -> blend
-(counterpart of mini3dgs_tpu/ops/renderer.py, forward only).
+(counterpart of mini3dgs_tpu/ops/renderer.py).
 
-Two raster modes, both behind the same projection:
-  * "tiles"  — binning + the hand-written CUDA tile kernel
-               (ops/binning.py, ops/raster_cuda.py); on CPU tensors the
-               kernel's plain PyTorch version runs instead.
-  * "golden" — the vectorized reference compositor (ops/raster_ref.py).
+Two raster modes, both behind the same projection and both differentiable:
+  * "tiles"  — binning + the hand-written CUDA tile kernels, forward and
+               backward (ops/binning.py, ops/raster_cuda.py); on CPU
+               tensors the kernels' plain PyTorch versions run instead.
+  * "golden" — the vectorized reference compositor (ops/raster_ref.py),
+               differentiated by autograd.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..core.camera import Camera
 from ..core.gaussians import Gaussians
@@ -42,13 +45,21 @@ class RenderSettings:
     antialias: bool = False
     raster: str = "tiles"
 
+    def replace(self, **changes) -> "RenderSettings":
+        return dataclasses.replace(self, **changes)
+
 
 def render(gaussians: Gaussians, camera: Camera,
-           settings: Optional[RenderSettings] = None) -> dict:
+           settings: Optional[RenderSettings] = None,
+           means2d_probe: Optional[torch.Tensor] = None) -> dict:
     """Render one view.  Returns image [3,H,W], alpha [1,H,W],
     depth [1,H,W], viewspace_points [C,2], visibility_filter [C],
     radii [C], conics [C,3], and the instance-stream counters n_dropped,
-    n_live, n_dropped_large, n_large (ints; 0 on the golden path)."""
+    n_live, n_dropped_large, n_large (ints; 0 on the golden path).
+
+    `means2d_probe` ([C,2], zeros) is added to the projected pixel means,
+    so its gradient is the viewspace positional gradient that
+    densification accumulates."""
     if settings is None:
         settings = RenderSettings(image_height=camera.height,
                                   image_width=camera.width)
@@ -59,12 +70,19 @@ def render(gaussians: Gaussians, camera: Camera,
     bg = torch.as_tensor(settings.bg_color, dtype=torch.float32,
                          device=gaussians.device)
 
-    proj = project_gaussians(
-        gaussians, camera,
-        radius_min=settings.radius_min, radius_max=settings.radius_max,
-        color_mode=settings.color_mode, sh_degree=settings.sh_degree,
-        scale_modifier=settings.scale_modifier,
-        antialias=settings.antialias)
+    # The record_function ranges name the stages of a step in a
+    # torch.profiler trace (scripts/profile_step_torch.py reads them).
+    with record_function("3dgs:projection"):
+        proj = project_gaussians(
+            gaussians, camera,
+            radius_min=settings.radius_min, radius_max=settings.radius_max,
+            color_mode=settings.color_mode, sh_degree=settings.sh_degree,
+            scale_modifier=settings.scale_modifier,
+            antialias=settings.antialias)
+        if means2d_probe is not None:
+            # the exact-cull half-extents are relative to the centre, so
+            # they stay valid under the (identically zero) probe offset
+            proj = proj._replace(means2d=proj.means2d + means2d_probe)
 
     if settings.raster == "tiles":
         out = rasterize_tiles(proj, H, W, bg, tile_size=settings.tile_size)

@@ -1,6 +1,7 @@
-"""The CUDA raster kernel against its plain PyTorch version, on the card.
+"""The CUDA raster kernels against their plain PyTorch versions, on the
+card.
 
-Marked `cuda`: these tests skip on a host without a CUDA device (the CUDA
+Marked `cuda`: these tests skip on a host without a CUDA device (a CUDA
 kernel has no CPU mode).  This file imports no JAX, so on a GPU host that
 has no JAX it runs without the repository's conftest:
 
@@ -55,9 +56,49 @@ def test_kernel_matches_plain_on_card(cuda, tile_size):
     assert bool((got[:, 5:] == 0).all())
 
 
-def test_kernel_path_refuses_grad_and_other_tile_sizes(cuda):
+def _normalised_row_error(got, want):
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-20)
+    return float(((got - want).abs() / scale).max())
+
+
+@pytest.mark.parametrize("tile_size", rc.KERNEL_TILE_SIZES)
+def test_backward_kernel_matches_plain_on_card(cuda, tile_size):
+    """Each of the 10 gradient rows within 1e-3 of the plain row's largest
+    entry (float32 sums over a tile's pixels in another order; S_j is a
+    difference of nearly equal sums), two launches bitwise equal, and the
+    launch counted."""
+    stream, start, count = _stream(tile_size, 9, 7, cuda)
+    args = (stream, start, count, 9, tile_size)
+    acc = rc.raster_fwd(*args)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gout = torch.zeros_like(acc)
+    gout[:, :5] = torch.randn(acc[:, :5].shape, generator=gen, device=cuda)
+    before = rc.raster_bwd.launches
+    got = rc.raster_bwd(*args, acc, gout)
+    again = rc.raster_bwd(*args, acc, gout)
+    assert rc.raster_bwd.launches == before + 2
+    want = rc.raster_bwd_plain(*args, acc, gout)
+    torch.cuda.synchronize()
+    assert got.shape == stream.shape and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert _normalised_row_error(got, want) < 1e-3
+
+
+def test_kernel_pair_differentiates_a_stream_on_card(cuda):
+    """`raster_op` on a stream that requires grad launches both kernels, and
+    the gradient equals the plain backward's; other tile sizes are refused."""
     s, start, count = _stream(16, 4, 4, cuda)
-    with pytest.raises(NotImplementedError):
-        rc.raster_fwd(s.requires_grad_(True), start, count, 4, 16)
+    leaf = s.clone().requires_grad_(True)
+    fwd, bwd = rc.raster_fwd.launches, rc.raster_bwd.launches
+    acc = rc.raster_op(leaf, start, count, 4, 16)
+    weights = torch.linspace(0.5, 1.5, acc[:, :5].numel(),
+                             device=cuda).reshape(acc[:, :5].shape)
+    (acc[:, :5] * weights).sum().backward()
+    assert (rc.raster_fwd.launches, rc.raster_bwd.launches) == (fwd + 1,
+                                                                bwd + 1)
+    gout = torch.zeros_like(acc)
+    gout[:, :5] = weights
+    want = rc.raster_bwd_plain(s, start, count, 4, 16, acc.detach(), gout)
+    assert _normalised_row_error(leaf.grad, want) < 1e-3
     with pytest.raises(ValueError, match="tile sizes"):
-        rc.raster_fwd(s.detach(), start, count, 4, 8)
+        rc.raster_fwd(s, start, count, 4, 8)
