@@ -9,13 +9,21 @@ each against its plain PyTorch version on the card (edge cases at tile 16
 and 32, a ragged image edge, and the golden rasterizer and its autograd on a
 small scene), checks that binning on the card equals binning on the CPU,
 renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
-`render`, runs the novel-view entry point, takes twelve full-width train
+`render`, runs the novel-view entry point, takes six full-width train
 steps (then one densify and one prune step) on that scene, and runs the
-training entry point.  Any failure raises; nothing falls back to the CPU.
+training entry point.  Then the ring route (parallel/ring.py) with five
+ranks on the one card: the kernels' `t0` builds against their plain
+versions and as a chain against one single pass, a full-width ring render
+against the single-device render, ring gradients against single-device
+gradients, four full-width ring train steps, and both entry points with
+--tile-shards 5 --ring.  Any failure raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import dataclasses
+import io
 import json
 import shutil
 import subprocess
@@ -31,7 +39,12 @@ REPO = Path(__file__).resolve().parent
 VIEW_SIZE = 800
 N_GAUSSIANS = 100_000
 CAPACITY = 2 ** 17
-TRAIN_STEPS = 12
+TRAIN_STEPS = 6
+# The ring route: 800 / 32 = 25 tile rows split into 5 bands of 160 rows,
+# and a pool whose capacity divides over the 5 depth-rank ranges.
+RING_RANKS = 5
+RING_CAPACITY = 5 * 26_215
+RING_STEPS = 4
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores (an FMA counts as two).
@@ -53,6 +66,7 @@ BWD_LIVE_OPS = 25
 BWD_ALPHA_OPS = 16
 # Backward, further, where also w < 1: d_lw 2; the five geometric terms 20.
 BWD_GEOM_OPS = 22
+N_ACC_ROWS = 8  # rows of the accumulators a forward launch writes
 
 
 def gate(a: torch.Tensor, b: torch.Tensor, name: str) -> float:
@@ -75,29 +89,43 @@ def gate(a: torch.Tensor, b: torch.Tensor, name: str) -> float:
     return float(d.max())
 
 
-def gate_acc(acc_k, acc_p, name) -> float:
-    """Gate raw [T, 8, P] accumulators: rgb, alpha, depth / max depth."""
-    if bool((acc_k[:, 5:] != 0).any()):
-        raise AssertionError(f"{name}: pad rows 5..7 are not zero")
-    scale = max(float(acc_p[:, 3].abs().max()), 1e-6)
-    return max(gate(acc_k[:, 0:3], acc_p[:, 0:3], f"{name} rgb"),
-               gate(acc_k[:, 4], acc_p[:, 4], f"{name} alpha"),
-               gate(acc_k[:, 3] / scale, acc_p[:, 3] / scale,
-                    f"{name} depth/max"))
+def gate_acc(acc_k, acc_p, name, has_t0: bool = False,
+             depth_scale: float | None = None) -> float:
+    """Gate raw [T, 8, P] accumulators: rgb, alpha, depth / max depth; with
+    `has_t0` also row 5, the outgoing transmittance.  The depth row is
+    divided by `depth_scale`, by default its own largest value in `acc_p`.
+    A launch deep in a chain names the largest depth of its instances
+    instead: an early-stop flip costs up to 5e-3 of an instance's depth,
+    whatever little the launch's own accumulated depth comes to behind the
+    transmittance it was handed."""
+    pad = 6 if has_t0 else 5
+    if bool((acc_k[:, pad:] != 0).any()):
+        raise AssertionError(f"{name}: pad rows {pad}..7 are not zero")
+    scale = depth_scale or max(float(acc_p[:, 3].abs().max()), 1e-6)
+    worst = max(gate(acc_k[:, 0:3], acc_p[:, 0:3], f"{name} rgb"),
+                gate(acc_k[:, 4], acc_p[:, 4], f"{name} alpha"),
+                gate(acc_k[:, 3] / scale, acc_p[:, 3] / scale,
+                     f"{name} depth/max"))
+    if has_t0:
+        worst = max(worst, gate(acc_k[:, 5], acc_p[:, 5], f"{name} T_end"))
+    return worst
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn() after one warm-up."""
+def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median of `reps` CUDA-event timings of fn() after one warm-up; each
+    timing spans `inner` calls back to back and is divided by `inner` (for
+    launches too short to time one at a time)."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -125,14 +153,54 @@ def gate_rows(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
     return worst
 
 
-def seeded_gout(acc: torch.Tensor, seed: int) -> torch.Tensor:
-    """A cotangent of the accumulators: N(0,1) on the 5 live rows, 0 on
-    the pad rows."""
+def seeded_gout(acc: torch.Tensor, seed: int, rows: int = 5) -> torch.Tensor:
+    """A cotangent of the accumulators: N(0,1) on the first `rows` rows (5,
+    or 6 with the outgoing transmittance), 0 on the pad rows."""
     gen = torch.Generator(device=acc.device).manual_seed(seed)
     gout = torch.zeros_like(acc)
-    gout[:, :5] = torch.randn(acc[:, :5].shape, generator=gen,
-                              device=acc.device)
+    gout[:, :rows] = torch.randn(acc[:, :rows].shape, generator=gen,
+                                 device=acc.device)
     return gout
+
+
+def seeded_t0(n_tiles: int, P: int, seed: int, device):
+    """An incoming transmittance [T, 1, P] in [0, 1] with the cases of the
+    chain: tiles t % 5 == 1 arrive at exactly 1 (nothing in front); tiles
+    t % 5 == 3 arrive closed (t0 <= 0.005 everywhere, tile 3 at exactly 0);
+    in every other tile a tenth of the pixels arrive closed and the rest lie
+    in (0.006, 1].  Tiles t % 7 == 6 (the edge streams' saturating tiles)
+    stay open.  Returns (t0, closed tiles, tiles at 1)."""
+    rng = np.random.default_rng(seed)
+    t0 = rng.uniform(0.006, 1.0, (n_tiles, 1, P))
+    some = rng.random((n_tiles, 1, P)) < 0.1
+    t0[some] = rng.uniform(0.0, 0.005, int(some.sum()))
+    t = np.arange(n_tiles)
+    sat = t % 7 == 6
+    ones = (t % 5 == 1) & ~sat
+    closed = (t % 5 == 3) & ~sat
+    t0[sat] = rng.uniform(0.5, 1.0, (int(sat.sum()), 1, P))
+    t0[ones] = 1.0
+    t0[closed] = rng.uniform(0.0, 0.005, (int(closed.sum()), 1, P))
+    t0[3] = 0.0
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return (as_t(t0, torch.float32), as_t(np.flatnonzero(closed), torch.long),
+            as_t(np.flatnonzero(ones), torch.long))
+
+
+def cut_ranges(stream, start, count, key, n: int):
+    """Cut a tile-major stream into `n` streams: instance i goes to stream
+    key[i] (non-decreasing within each tile's slice, so every part keeps
+    the tile's front-to-back order).  Returns n (stream, start, count)."""
+    T = start.shape[0]
+    tile = torch.repeat_interleave(torch.arange(T, device=stream.device),
+                                   count.long())
+    parts = []
+    for r in range(n):
+        mask = key == r
+        cnt = torch.bincount(tile[mask], minlength=T)
+        parts.append((stream[:, mask].contiguous(),
+                      (torch.cumsum(cnt, 0) - cnt).int(), cnt.int()))
+    return parts
 
 
 def edge_stream(tile_size, tiles_x, tiles_y, seed, device):
@@ -175,18 +243,23 @@ def edge_stream(tile_size, tiles_x, tiles_y, seed, device):
         to(counts, torch.int32)
 
 
-def pair_counts(rc, stream, start, count, tiles_x, ts) -> dict:
+def pair_counts(rc, stream, start, count, tiles_x, ts, t0=None,
+                tile0=0) -> dict:
     """Pixel x instance pairs of this stream by how far the raster functions
     have to take them (counted with the plain version's terms): `open`, the
     pixel's gate is open before the instance; of those `live`, w >= 1e-5;
     of those `alpha`, 0 < op*w < 1 (d_alpha is needed); of those `geom`,
-    w < 1 (the geometric gradient is needed)."""
+    w < 1 (the geometric gradient is needed).  With `t0` the transmittance
+    starts there, so a pixel that arrives closed counts no pair."""
     T, P = start.shape[0], ts * ts
-    px, py = rc._pixel_coords(T, tiles_x, ts, stream.device)
-    trans = torch.ones(T, P, device=stream.device)
+    n = dict(open=0, live=0, alpha=0, geom=0)
+    if stream.shape[1] == 0:
+        return n
+    px, py = rc._pixel_coords(T, tiles_x, ts, stream.device, tile0)
+    trans = torch.ones(T, P, device=stream.device) if t0 is None \
+        else t0.reshape(T, P)
     lanes = torch.arange(64, device=stream.device)[None, :]
     st, ct = start.long()[:, None], count.long()[:, None]
-    n = dict(open=0, live=0, alpha=0, geom=0)
     for base in range(0, int(count.max()), 64):
         m = rc._slice_terms(stream, st, ct, px, py, trans, base, lanes)
         live = m["gate"] & m["live"]
@@ -197,6 +270,27 @@ def pair_counts(rc, stream, start, count, tiles_x, ts) -> dict:
         n["geom"] += int((alpha & (m["w"] < 1.0)).sum())
         trans = m["trans"]
     return n
+
+
+def raster_bounds(pairs: dict, n_live: int, T: int, P: int, has_t0: bool):
+    """((bound_ms, bound_by) of the forward, the same of the backward) for
+    one launch over `n_live` instances and `T` tiles of `P` pixels, from
+    its pair counts.  Bytes, each input read once and each output written
+    once: the stream (40 B an instance), the two ranges, the forward's 8
+    output rows; for the backward the stream and its gradient, and the live
+    rows of accumulators and cotangent (5, or 6 with `t0`).  With `t0`: t0
+    itself, for the backward also d_t0 and its division (8 operations and
+    the 2 of the extra product, a pixel)."""
+    t0_bytes = 4 * T * P if has_t0 else 0
+    rows = 6 if has_t0 else 5
+    fwd = bound(40 * n_live + 8 * T + 4 * N_ACC_ROWS * T * P + t0_bytes,
+                PAIR_TEST_OPS * pairs["open"] + FWD_LIVE_OPS * pairs["live"])
+    bwd = bound(80 * n_live + 8 * T + 2 * 4 * rows * T * P + 2 * t0_bytes,
+                PAIR_TEST_OPS * pairs["open"] + BWD_LIVE_OPS * pairs["live"]
+                + BWD_ALPHA_OPS * pairs["alpha"]
+                + BWD_GEOM_OPS * pairs["geom"]
+                + (10 * T * P if has_t0 else 0))
+    return fwd, bwd
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -228,10 +322,16 @@ def main() -> int:
     from mini3dgs_tpu_torch.core.loss import gaussian_loss
     from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops import raster_ref
-    from mini3dgs_tpu_torch.ops.binning import bin_gaussians
+    from mini3dgs_tpu_torch.ops.binning import (ROW_DEPTH, bin_gaussians,
+                                                bin_gaussians_ring_origin,
+                                                pack_instances)
     from mini3dgs_tpu_torch.ops.projection import project_gaussians
     from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render
+    from mini3dgs_tpu_torch.parallel.mesh import make_mesh
+    from mini3dgs_tpu_torch.parallel.sharded import (make_sharded_render,
+                                                     make_sharded_train_step)
     from mini3dgs_tpu_torch.train import trainer
+    from mini3dgs_tpu_torch.train.optimizer import group_lrs, schedule_factor
     from mini3dgs_tpu_torch.utils.gaussian_ply import export_gaussians_ply
     from mini3dgs_tpu_torch.utils.metrics import psnr
     from mini3dgs_tpu_torch.utils.vis import turntable_cameras
@@ -278,10 +378,11 @@ def main() -> int:
     Hr, Wr = 250, 333  # a ragged edge at both tile sizes
     cam_r = convert.camera_from_numpy(**cam, width=Wr, height=Hr, device=dev)
     bg = torch.ones(3, device=dev)
-    ragged = {}
+    ragged, ragged_binning = {}, {}
     for ts in rc.KERNEL_TILE_SIZES:
         proj = project_gaussians(g_small, cam_r)
         b, stream = rc.tile_stream(proj, Hr, Wr, ts)
+        ragged_binning[ts] = (b, stream)
         tiles_x = -(-Wr // ts)
         acc_k = rc.raster_fwd(stream, b.tile_start, b.tile_count, tiles_x, ts)
         acc_p = rc.raster_fwd_plain(stream, b.tile_start, b.tile_count,
@@ -367,6 +468,100 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"render gradient {k} disagrees with the "
                                  "golden's")
+
+    # ---- 3d. forward kernel with t0 vs plain on the card ---------------
+    print("[3d forward kernel with t0 vs plain]", flush=True)
+    t0_err, t0_cases = 0.0, {}
+    for name, cases in (("edge", edge), ("ragged", ragged)):
+        for ts, (stream, start, count, tiles_x, _, acc_b1) in cases.items():
+            T, P = start.shape[0], ts * ts
+            args = (stream, start, count, tiles_x, ts)
+            t0, closed, ones = seeded_t0(T, P, 200 + ts, dev)
+            acc_k = rc.raster_fwd(*args, t0=t0)
+            acc_p = rc.raster_fwd_plain(*args, t0=t0)
+            torch.cuda.synchronize()
+            t0_err = max(t0_err, gate_acc(acc_k, acc_p, f"tile{ts} {name} t0",
+                                          has_t0=True))
+            # A tile that arrives closed adds nothing and hands t0 on.
+            if bool((acc_k[closed, :5] != 0).any()) \
+                    or not torch.equal(acc_k[closed, 5:6], t0[closed]):
+                raise AssertionError(f"tile{ts} {name}: a closed tile moved")
+            # t0 == 1 is the single pass: rows 0..4 bitwise, and the
+            # transmittance left is 1 - alpha up to the sums' rounding.
+            full = rc.raster_fwd(*args, t0=torch.ones_like(t0))
+            if not torch.equal(full[:, :5], acc_b1[:, :5]) \
+                    or not torch.equal(acc_k[ones, :5], acc_b1[ones, :5]):
+                raise AssertionError(f"tile{ts} {name}: t0 == 1 differs from "
+                                     "the kernel without t0")
+            gate(full[:, 5], 1.0 - acc_b1[:, 4], f"tile{ts} {name} 1-alpha")
+            print(f"    tile{ts} {name}: {closed.numel()} closed tiles exactly "
+                  f"0, t0 == 1 bitwise equal to raster_fwd on rows 0..4")
+            t0_cases[name, ts] = (args, t0, closed, acc_k)
+
+    # ---- 3e. the chain: 4 ranges with the transmittance carried --------
+    print("[3e chain of 4 ranges vs one pass]", flush=True)
+    for ts in rc.KERNEL_TILE_SIZES:
+        stream, start, count, tiles_x, _, acc_b1 = edge[ts]
+        T = start.shape[0]
+        tile = torch.repeat_interleave(torch.arange(T, device=dev),
+                                       count.long())
+        local = torch.arange(stream.shape[1], device=dev) - start.long()[tile]
+        quarter = local * 4 // count.long()[tile]       # by place in the tile
+        b_r, stream_r = ragged_binning[ts]
+        depth_range = b_r.s_rank * 4 // g_small.capacity  # by depth rank
+        for name, (stream, start, count, tiles_x, _, acc_b1), key in (
+                ("edge", edge[ts], quarter),
+                ("ragged", ragged[ts], depth_range)):
+            T, P = start.shape[0], ts * ts
+            trans = torch.ones(T, 1, P, device=dev)
+            total = torch.zeros(T, 5, P, device=dev)
+            sizes = []
+            for part in cut_ranges(stream, start, count, key, 4):
+                out = rc.raster_fwd(*part, tiles_x, ts, t0=trans)
+                total, trans = total + out[:, :5], out[:, 5:6]
+                sizes.append(part[0].shape[1])
+            chained = torch.cat([total, torch.zeros(T, 3, P, device=dev)], 1)
+            print(f"  tile {ts} {name}: ranges of {sizes} instances")
+            gate_acc(chained, acc_b1, f"tile{ts} {name} chain")
+
+    # ---- 3f. backward kernel with t0 vs plain on the card --------------
+    print("[3f backward kernel with t0 vs plain]", flush=True)
+    dt0_err = 0.0
+    for (name, ts), (args, t0, closed, acc_k) in t0_cases.items():
+        stream, start, count = args[:3]
+        gout = seeded_gout(acc_k, 300 + ts, rows=6)
+        bargs = (*args, acc_k, gout)
+        d_k, dt0_k = rc.raster_bwd(*bargs, t0=t0)
+        d_again, dt0_again = rc.raster_bwd(*bargs, t0=t0)
+        d_p, dt0_p = rc.raster_bwd_plain(*bargs, t0=t0)
+        torch.cuda.synchronize()
+        dt0_err = max(dt0_err, gate_rows(d_k, d_p, f"tile{ts} {name} t0"),
+                      gate_rows(dt0_k.reshape(1, -1), dt0_p.reshape(1, -1),
+                                f"tile{ts} {name} d_t0"))
+        if not (torch.equal(d_k, d_again) and torch.equal(dt0_k, dt0_again)):
+            raise AssertionError(f"tile{ts} {name}: two launches of the "
+                                 "backward kernel with t0 differ")
+        # Instances of tiles that arrive closed get exactly 0.
+        cols = torch.cat([torch.arange(int(start[t]),
+                                       int(start[t]) + int(count[t]),
+                                       device=dev) for t in closed.tolist()])
+        if cols.numel() < 100 or bool((d_k[:, cols] != 0).any()) \
+                or bool((d_p[:, cols] != 0).any()):
+            raise AssertionError(f"tile{ts} {name}: instances of closed "
+                                 "tiles are not exactly 0")
+        msg = f"{cols.numel()} instances of closed tiles exactly 0"
+        if name == "edge":
+            sat = torch.arange(6, start.shape[0], 7, device=dev)
+            behind = torch.cat([
+                torch.arange(int(start[t]) + 128,
+                             int(start[t]) + int(count[t]), device=dev)
+                for t in sat.tolist() if int(count[t]) > 128])
+            if behind.numel() < 1000 or bool((d_k[:, behind] != 0).any()) \
+                    or bool((d_p[:, behind] != 0).any()):
+                raise AssertionError(f"tile{ts} edge t0: rows behind an "
+                                     "early exit are not exactly 0")
+            msg += f", {behind.numel()} rows behind an early exit exactly 0"
+        print(f"    tile{ts} {name}: {msg}; two launches bitwise equal")
 
     # ---- 4. binning on the card == binning on the CPU -----------------
     params, alive, cam = convert.flagship_scene_numpy(CAPACITY, N_GAUSSIANS,
@@ -567,14 +762,7 @@ def main() -> int:
     t_bwd_plain = cuda_ms(lambda: rc.raster_bwd_plain(*bargs), reps=2)
     pairs = pair_counts(rc, *fargs)
     n_live, T, P = b.n_live, b.tile_start.shape[0], 32 * 32
-    fwd_bound = bound(40 * n_live + 8 * T + 4 * rc.N_ACC * T * P,
-                      PAIR_TEST_OPS * pairs["open"]
-                      + FWD_LIVE_OPS * pairs["live"])
-    bwd_bound = bound(80 * n_live + 8 * T + 2 * 4 * 5 * T * P,
-                      PAIR_TEST_OPS * pairs["open"]
-                      + BWD_LIVE_OPS * pairs["live"]
-                      + BWD_ALPHA_OPS * pairs["alpha"]
-                      + BWD_GEOM_OPS * pairs["geom"])
+    fwd_bound, bwd_bound = raster_bounds(pairs, n_live, T, P, has_t0=False)
     print(f"  train view: n_live {n_live}, n_live x P {n_live * P}, pairs "
           f"with the gate open {pairs['open']}, of those w >= 1e-5 "
           f"{pairs['live']}, of those 0 < op*w < 1 {pairs['alpha']}, of "
@@ -587,8 +775,6 @@ def main() -> int:
     # ---- 8. train entry point ----------------------------------------
     mod = load_script("train_torch")
     rc.raster_fwd.launches = rc.raster_bwd.launches = 0
-    import contextlib
-    import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc_main = mod.main([
@@ -609,7 +795,348 @@ def main() -> int:
           f"{log[-2]['n_clone']} clone, backward launches "
           f"{rc.raster_bwd.launches}: {json.dumps(final)}", flush=True)
 
-    # ---- 9. result ----------------------------------------------------
+    # ---- 9. ring render at full width ---------------------------------
+    # Five ranks on the one card: 5 bands of 160 rows, 5 depth-rank ranges
+    # of a pool of 131,075 slots holding the same 100,000 Gaussians.
+    def zero_counts():
+        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+        rc.raster_fwd.launches_t0 = rc.raster_bwd.launches_t0 = 0
+
+    def counts():
+        return (rc.raster_fwd.launches, rc.raster_bwd.launches,
+                rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+
+    n_rk = RING_RANKS
+    r_params, r_alive, _ = convert.flagship_scene_numpy(RING_CAPACITY,
+                                                        N_GAUSSIANS, seed=0)
+    r_params["features_rest"][:N_GAUSSIANS] = \
+        params["features_rest"][:N_GAUSSIANS]
+    g_ring = convert.gaussians_from_numpy(r_params, r_alive, dev)
+    mesh = make_mesh(data=1, tile=n_rk, devices=[dev])
+    ring_settings = settings.replace(ring=True)
+    ring_render = make_sharded_render(ring_settings, mesh)
+    with torch.no_grad():
+        single = render(g_ring, bench_cam, settings)
+        ring_render(g_ring, bench_cam)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        ring_ms = []
+        t0 = time.perf_counter()
+        out = ring_render(g_ring, bench_cam)
+        torch.cuda.synchronize()
+        ring_ms.append((time.perf_counter() - t0) * 1e3)
+        ring_render_launches = counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ring_render(g_ring, bench_cam)
+            torch.cuda.synchronize()
+            ring_ms.append((time.perf_counter() - t0) * 1e3)
+    if ring_render_launches != (0, 0, n_rk * n_rk, 0):
+        raise AssertionError(f"the ring render launched {ring_render_launches}"
+                             f", not {n_rk * n_rk} forward kernels with t0")
+    print(f"[9 ring render] {VIEW_SIZE}^2 tile 32, {N_GAUSSIANS} Gaussians "
+          f"(pool {RING_CAPACITY}), SH 3, {n_rk} ranks on {dev}: launches "
+          f"(fwd, bwd, fwd t0, bwd t0) {ring_render_launches}, render ms "
+          f"{' '.join(f'{t:.2f}' for t in ring_ms)}", flush=True)
+    raw = lambda o: o["depth"] * (o["alpha"] + 1e-6)
+    d_scale = float(raw(single).abs().max())
+    ring_render_err = max(
+        gate(out["image"], single["image"], "ring vs single image"),
+        gate(out["alpha"], single["alpha"], "ring vs single alpha"),
+        gate(raw(out) / d_scale, raw(single) / d_scale,
+             "ring vs single depth/max"))
+    print("  n_live per depth range (rows) and band (columns):")
+    for r, row in enumerate(out["seg_live"]):
+        print(f"    range {r}: {row}")
+    if sum(map(sum, out["seg_live"])) != single["n_live"] \
+            or sum(out["n_live"]) != single["n_live"]:
+        raise AssertionError("the ring's segments do not add up to the "
+                             f"single-device stream of {single['n_live']}")
+    print(f"  sum over segments {single['n_live']} == single-device n_live")
+
+    # ---- 10. ring gradients against single-device gradients -----------
+    # The anisotropic small scene, 4 bands of 2 tile rows, a ragged right
+    # edge; the gradients differ by float32 association at the ranges'
+    # borders (measured below; the bound is rel-L2 1e-3 per group).
+    Hg, Wg, n_g = 256, 333, 4
+    cam_g = convert.camera_from_numpy(**cam, width=Wg, height=Hg, device=dev)
+    set_g = RenderSettings(image_height=Hg, image_width=Wg,
+                           bg_color=(1.0, 1.0, 1.0), tile_size=32)
+    target_g = torch.rand(3, Hg, Wg, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(4))
+    ring_g = make_sharded_render(set_g.replace(ring=True),
+                                 make_mesh(1, n_g, devices=[dev]))
+    grads = {}
+    for route, fn in (("ring", ring_g),
+                      ("single", lambda gs, c: render(gs, c, set_g))):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in g_aniso.params().items()}
+        zero_counts()
+        o = fn(g_aniso.with_params(leaves), cam_g)
+        loss = (((o["image"] - target_g) ** 2).mean()
+                + 0.1 * o["alpha"].mean() + 0.01 * o["depth"].mean())
+        names = [k for k in leaves if k != "features_rest"]
+        grads[route] = dict(zip(names, torch.autograd.grad(
+            loss, [leaves[k] for k in names])))
+        if route == "ring" and counts() != (0, 0, n_g * n_g, n_g * n_g):
+            raise AssertionError(f"ring gradients launched {counts()}")
+    print(f"[10 ring gradients] {Wg}x{Hg} tile 32, {n_g} ranks, launches "
+          f"with t0 {n_g * n_g} forward and {n_g * n_g} backward",
+          flush=True)
+    ring_grad_err = 0.0
+    for k, gr in grads["ring"].items():
+        a = gr[g_small.alive].double()
+        b = grads["single"][k][g_small.alive].double()
+        l2 = float((a - b).norm() / b.norm())
+        worst = float((a - b).abs().max() / b.abs().max())
+        ok = bool(torch.isfinite(a).all()) and l2 < 1e-3
+        ring_grad_err = max(ring_grad_err, l2)
+        print(f"    grad {k:12s} max={worst:.3e} rel-L2={l2:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ring gradient {k} disagrees with the "
+                                 "single-device gradient")
+
+    # ---- 11. ring train steps at full width ---------------------------
+    r_config = dataclasses.replace(config, capacity=RING_CAPACITY,
+                                   iterations=RING_STEPS, mesh_tile=n_rk,
+                                   ring_exchange=True)
+    s_params, s_alive, _ = convert.flagship_scene_numpy(RING_CAPACITY,
+                                                        N_GAUSSIANS, seed=0)
+    g0_ring = convert.gaussians_from_numpy(s_params, s_alive, dev)
+    ring_step = make_sharded_train_step(r_config, ring_settings, mesh)
+    r_state0 = trainer.create_train_state(g0_ring, r_config)
+    ring_step(r_state0, [train_cam])  # warm-up
+    one_state, one_m = trainer.train_step(r_state0, train_cam, r_config,
+                                          settings)
+    torch.cuda.synchronize()
+    zero_counts()
+    r_state, r_losses, r_ms, first = r_state0, [], [], None
+    for _ in range(RING_STEPS):
+        t0 = time.perf_counter()
+        r_state, r_metrics = ring_step(r_state, [train_cam])
+        torch.cuda.synchronize()
+        r_ms.append((time.perf_counter() - t0) * 1e3)
+        r_losses.append(float(r_metrics["total_loss"]))
+        first = first or r_state
+    ring_train_launches = counts()
+    per_step = n_rk * n_rk
+    if ring_train_launches != (0, 0, RING_STEPS * per_step,
+                               RING_STEPS * per_step):
+        raise AssertionError(f"{RING_STEPS} ring steps launched the kernels "
+                             f"{ring_train_launches} times")
+    dead = ~g0_ring.alive
+    for k, v in r_state.gaussians.params().items():
+        for what, t in (("parameter", v),
+                        ("Adam mu", r_state.opt_state.mu[k]),
+                        ("Adam nu", r_state.opt_state.nu[k])):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"ring: non-finite {what} {k}")
+        if not torch.equal(v[dead], getattr(g0_ring, k)[dead]):
+            raise AssertionError(f"ring: dead slots of {k} moved")
+        if torch.equal(v, getattr(g0_ring, k)):
+            raise AssertionError(f"ring: {k} did not train")
+    if not (np.isfinite(r_losses).all() and r_losses[-1] < r_losses[0]):
+        raise AssertionError(f"ring: loss did not fall: {r_losses}")
+    if float(r_state.gaussians.denom.max()) != RING_STEPS:
+        raise AssertionError("ring: the densify statistics were not "
+                             "accumulated")
+    print(f"[11 ring train] {RING_STEPS} steps {VIEW_SIZE}^2, {N_GAUSSIANS} "
+          f"Gaussians (pool {RING_CAPACITY}), SH 3, tile 32, mesh (1, {n_rk})"
+          f": launches (fwd, bwd, fwd t0, bwd t0) {ring_train_launches}, loss "
+          f"{r_losses[0]:.5f} -> {r_losses[-1]:.5f}, fullest range "
+          f"{r_metrics['render_instances']} instances, step ms median "
+          f"{np.median(r_ms):.2f} min {min(r_ms):.2f} max {max(r_ms):.2f}",
+          flush=True)
+    # The first ring step against the single-device step from the same
+    # state.  The loss differs by float32 association (rtol 1e-5).  Adam's
+    # first step is lr * g / (|g| + 1e-8): of size 1 in units of the
+    # learning rate whatever the gradient's size, so it passes on the
+    # gradient's relative error.  Where sqrt(nu) is at least 1e-2 of the
+    # tensor's largest the steps agree within 1e-2 of a step; elsewhere a
+    # gradient near 0 may flip its sign (at most 2 steps).
+    if abs(r_losses[0] - float(one_m["total_loss"])) \
+            > 1e-5 * abs(float(one_m["total_loss"])):
+        raise AssertionError(f"ring: first loss {r_losses[0]} against "
+                             f"{float(one_m['total_loss'])}")
+    factor = schedule_factor(r_config, 0)
+    stat_ref = one_state.gaussians.xyz_gradient_accum
+    stat = float((first.gaussians.xyz_gradient_accum - stat_ref).abs().max()
+                 / stat_ref.abs().max())
+    # The statistic is a norm of sums over pixels whose S_j now hold the
+    # chain term; float32 leaves 1e-4 to 2e-4 of the largest entry at full
+    # width (the bound is 1e-3).
+    if stat > 1e-3:
+        raise AssertionError(f"ring: the densify statistic differs by {stat} "
+                             "of its largest entry")
+    for k, lr in group_lrs(r_config).items():
+        if k in ("features_rest", "rotation"):
+            # The start has no SH rest, and its splats are isotropic, so
+            # the true rotation gradient is 0: both would compare noise.
+            continue
+        err = (getattr(first.gaussians, k)
+               - getattr(one_state.gaussians, k)).abs().double() / (lr * factor)
+        root_nu = one_state.opt_state.nu[k].sqrt()
+        firm = root_nu >= 1e-2 * root_nu.max()
+        print(f"    first step {k:12s} |ring - single| / lr: firm max "
+              f"{float(err[firm].max()):.3e} ({float(firm.float().mean()):.2f}"
+              f" of the entries), all max {float(err.max()):.3e}")
+        if float(err[firm].max()) > 1e-2 or float(err.max()) > 2.0:
+            raise AssertionError(f"ring: first step of {k} differs from the "
+                                 "single-device step")
+    print(f"    first step: loss {r_losses[0]:.6f} against "
+          f"{float(one_m['total_loss']):.6f}; densify statistic within "
+          f"{stat:.1e} of its largest entry", flush=True)
+
+    # ---- 11b. the 25 launches of a ring step, one by one --------------
+    # The trained ring state's bench-view segments, the transmittance
+    # chained forward and the loss's own cotangent chained backward, as
+    # the step does: each launch against its plain version, its time and
+    # its bound.
+    proj = project_gaussians(r_state.gaussians, bench_cam, color_mode="sh",
+                             sh_degree=3)
+    P = 32 * 32
+    ntb = (VIEW_SIZE // 32 // n_rk) * tiles_x
+    segs = {}
+    for r in range(n_rk):
+        rb = bin_gaussians_ring_origin(proj, VIEW_SIZE, VIEW_SIZE, 32, r,
+                                       n_rk)
+        packed = pack_instances(rc.instance_attrs(proj), rb)
+        for b in range(n_rk):
+            segs[b, r] = (
+                packed[:, rb.seg_start[b]:rb.seg_start[b + 1]].contiguous(),
+                rb.tile_start[b].contiguous(), rb.tile_count[b].contiguous())
+    t_in, acc_seg, bands = {}, {}, []
+    for b in range(n_rk):
+        trans = torch.ones(ntb, 1, P, device=dev)
+        total = torch.zeros(ntb, 5, P, device=dev)
+        for r in range(n_rk):
+            t_in[b, r] = trans
+            acc_seg[b, r] = rc.raster_fwd(*segs[b, r], tiles_x, 32, t0=trans,
+                                          tile0=b * ntb)
+            total = total + acc_seg[b, r][:, :5]
+            trans = acc_seg[b, r][:, 5:6].contiguous()
+        bands.append(torch.cat([total, torch.zeros(ntb, 3, P, device=dev)], 1))
+    acc_leaf = torch.cat(bands).requires_grad_(True)
+    image = rc.compose_image(acc_leaf, VIEW_SIZE, VIEW_SIZE, 32,
+                             torch.ones(3, device=dev))[0]
+    g_acc, = torch.autograd.grad(gaussian_loss(image, target)[0], acc_leaf)
+    g_in = {}
+    for b in range(n_rk):
+        g5 = torch.zeros(ntb, 1, P, device=dev)
+        for r in reversed(range(n_rk)):
+            g_in[b, r] = torch.cat(
+                [g_acc[b * ntb:(b + 1) * ntb, :5], g5,
+                 torch.zeros(ntb, 2, P, device=dev)], 1)
+            _, g5 = rc.raster_bwd(*segs[b, r], tiles_x, 32, acc_seg[b, r],
+                                  g_in[b, r], t0=t_in[b, r], tile0=b * ntb)
+    g5_share = float(torch.stack([g_in[b, 0][:, 5].abs().max()
+                                  for b in range(n_rk)]).max()
+                     / g_acc[:, :5].abs().max())
+    t3 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=0.0, worst=0.0)
+    t4 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=0.0, worst=0.0)
+    d_kernel, d_plain = [], []
+    for (b, r), seg in segs.items():
+        fargs = (*seg, tiles_x, 32)
+        kw = dict(t0=t_in[b, r], tile0=b * ntb)
+        bargs = (*fargs, acc_seg[b, r], g_in[b, r])
+        n_seg = seg[0].shape[1]
+        if n_seg:
+            name = f"band{b} range{r}"
+            t3["err"] = max(t3["err"], gate_acc(
+                acc_seg[b, r], rc.raster_fwd_plain(*fargs, **kw), name,
+                has_t0=True, depth_scale=float(seg[0][ROW_DEPTH].max())))
+            d_k, dt0_k = rc.raster_bwd(*bargs, **kw)
+            d_p, dt0_p = rc.raster_bwd_plain(*bargs, **kw)
+            d_kernel.append(d_k)
+            d_plain.append(d_p)
+            # Kernel and plain version read the same accumulators and the
+            # same cotangent, so d_t0 has no cliff and is held per launch.
+            t4["err"] = max(t4["err"], gate_rows(
+                dt0_k.reshape(1, -1), dt0_p.reshape(1, -1), name + " d_t0"))
+        elif bool((acc_seg[b, r][:, :5] != 0).any()) \
+                or not torch.equal(acc_seg[b, r][:, 5:6], t_in[b, r]):
+            raise AssertionError(f"band {b} range {r}: an empty segment "
+                                 "changed the accumulators")
+        pairs = pair_counts(rc, *fargs, **kw)
+        bounds = raster_bounds(pairs, n_seg, ntb, P, has_t0=True)
+        # Timed as the ring calls them: the ranges were checked at the origin,
+        # so a launch does not wait for the host; 4 launches per timing.
+        for t, fn, plain, bd in (
+                (t3, lambda: rc.raster_fwd(*fargs, **kw, ranges_checked=True),
+                 lambda: rc.raster_fwd_plain(*fargs, **kw), bounds[0]),
+                (t4, lambda: rc.raster_bwd(*bargs, **kw, ranges_checked=True),
+                 lambda: rc.raster_bwd_plain(*bargs, **kw), bounds[1])):
+            ms = cuda_ms(fn, inner=4)
+            t["ms"] += ms
+            t["worst"] = max(t["worst"], ms)
+            t["plain"] += cuda_ms(plain, reps=1)
+            t["bound"] += bd[0]
+            t["by"][bd[1]] = t["by"].get(bd[1], 0.0) + bd[0]
+    # The instance rows of all launches side by side, each row on the scale
+    # of the step's largest entry: behind a small transmittance a launch's
+    # own rows are small, and one early-stop flip would outweigh them.
+    t4["err"] = max(t4["err"], gate_rows(
+        torch.cat(d_kernel, 1), torch.cat(d_plain, 1), "all launches"))
+    for t in (t3, t4):
+        t["by"] = max(t["by"], key=t["by"].get)
+    print(f"[11b the {n_rk * n_rk} launches of a ring step] trained ring "
+          f"state, bench view; chained cotangent of the transmittance up to "
+          f"{g5_share:.3f} of the largest accumulator cotangent\n"
+          f"  raster_fwd_t0 sum {t3['ms']:.3f} ms, slowest launch "
+          f"{t3['worst']:.3f} (plain sum {t3['plain']:.1f}, bound sum "
+          f"{t3['bound']:.4f} by {t3['by']})\n"
+          f"  raster_bwd_t0 sum {t4['ms']:.3f} ms, slowest launch "
+          f"{t4['worst']:.3f} (plain sum {t4['plain']:.1f}, bound sum "
+          f"{t4['bound']:.4f} by {t4['by']})", flush=True)
+
+    # ---- 12. the entry points with --tile-shards 5 --ring --------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        ply = tmp / "flagship.ply"
+        export_gaussians_ply(g, str(ply))
+        mod = load_script("render_novel_view_torch")
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_main = mod.main([
+                "--ply", str(ply), "--output", str(tmp / "out"), "--n-frames",
+                "2", "--size", str(VIEW_SIZE), "--sh-degree", "3",
+                "--color-mode", "sh", "--tile-size", "32", "--bg", "1,1,1",
+                "--device", "cuda", "--tile-shards", str(n_rk), "--ring"])
+        if rc_main != 0 or counts() != (0, 0, 2 * per_step, 0):
+            raise AssertionError("the render entry point did not render 2 "
+                                 f"frames through the ring: {counts()}")
+        for i in range(2):
+            rgba = np.load(tmp / "out" / f"frame_{i:04d}.npy")
+            if rgba.shape != (4, VIEW_SIZE, VIEW_SIZE) or \
+                    not np.isfinite(rgba).all() or rgba[3].max() <= 0:
+                raise AssertionError(f"ring entry point frame {i} is bad")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mod = load_script("train_torch")
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_main = mod.main([
+            "--iterations", "4", "--size", str(VIEW_SIZE), "--n-gaussians",
+            str(N_GAUSSIANS), "--capacity", str(RING_CAPACITY), "--n-cameras",
+            "1", "--log-interval", "2", "--densify-from-iter", "4",
+            "--densify-interval", "4", "--sh-increase-interval", "1",
+            "--device", "cuda", "--tile-shards", str(n_rk), "--ring"])
+    log = [json.loads(x) for x in buf.getvalue().splitlines()]
+    final = log[-1]
+    if rc_main != 0 or rc.raster_bwd.launches_t0 != 4 * per_step \
+            or rc.raster_bwd.launches != 0 or "n_clone" not in log[-2] \
+            or not final["last_loss"] < final["first_loss"] \
+            or not np.isfinite([final["psnr_start"], final["psnr_end"]]).all():
+        raise AssertionError(f"the ring train entry point failed: {final}")
+    print(f"[12 ring entry points] render_novel_view_torch.py --tile-shards "
+          f"{n_rk} --ring: 2 finite frames, {2 * per_step} forward launches "
+          f"with t0; train_torch.py --tile-shards {n_rk} --ring: 4 "
+          f"iterations, backward launches with t0 "
+          f"{rc.raster_bwd.launches_t0}: {json.dumps(final)}", flush=True)
+
+    # ---- 13. result ---------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "raster_fwd", "route": "cuda",
          "source": "mini3dgs_tpu_torch/csrc/raster_fwd.cu",
@@ -623,7 +1150,30 @@ def main() -> int:
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:377",
          "launches": train_launches[1], "max_abs_err": bwd_err,
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
-         "bound_by": bwd_bound[1], "library_ms": None}]}))
+         "bound_by": bwd_bound[1], "library_ms": None},
+        # The two builds with t0: times, plain times and bounds are sums
+        # over the 25 launches of one ring render / step on the trained ring
+        # state's bench view; `ms_slowest_launch` is one full-width segment.
+        {"name": "raster_fwd_t0", "route": "cuda",
+         "source": "mini3dgs_tpu_torch/csrc/raster_fwd.cu",
+         "replaces": "mini3dgs_tpu/ops/raster_pallas.py:299",
+         "launches": ring_train_launches[2],
+         "launches_per_step": per_step,
+         "launches_render": ring_render_launches[2],
+         "max_abs_err": max(t0_err, t3["err"]), "ms": t3["ms"],
+         "ms_slowest_launch": t3["worst"], "plain_ms": t3["plain"],
+         "bound_ms": t3["bound"], "bound_by": t3["by"], "library_ms": None},
+        {"name": "raster_bwd_t0", "route": "cuda",
+         "source": "mini3dgs_tpu_torch/csrc/raster_bwd.cu",
+         "replaces": "mini3dgs_tpu/ops/raster_pallas.py:382",
+         "launches": ring_train_launches[3],
+         "launches_per_step": per_step,
+         "max_abs_err": max(dt0_err, t4["err"]), "ms": t4["ms"],
+         "ms_slowest_launch": t4["worst"], "plain_ms": t4["plain"],
+         "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None}],
+        "ring": {"ranks": n_rk, "render_ms": ring_ms, "step_ms": r_ms,
+                 "render_err": ring_render_err,
+                 "grad_rel_l2": ring_grad_err}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,9 +2,10 @@
 
 The flat `TrainingConfig` dataclass with the JAX package's field names and
 defaults, so a configuration reads the same in both packages.  Left out
-are the fields that size the JAX package's static shapes or select its mesh
-and kernels (max_instances, gaussian_chunk, the mesh and ring knobs,
-use_pallas, ...): the port's stream holds exactly the live instances, and
+are the fields that size the JAX package's static shapes or select its
+kernels (max_instances, gaussian_chunk, ring_capacity, use_pallas, ...) and
+the knobs of mesh routes not ported yet (ring_reshard, ring_local,
+shard_gauss_state): the port's stream holds exactly the live instances, and
 the raster path is `RenderSettings.raster`.  Also left out, until the code
 that reads them is ported (the dataset loaders, `GaussianTrainer`, the
 YAML loader): the data paths, batch_size, the eval and save intervals,
@@ -75,3 +76,8 @@ class TrainingConfig:
 
     # -- pool --
     capacity: int = 2 ** 17          # Gaussian slot-pool capacity
+
+    # -- mesh (parallel/mesh.py, parallel/sharded.py) --
+    mesh_data: int = 1               # cameras trained side by side
+    mesh_tile: int = 1               # image bands of whole tile rows
+    ring_exchange: bool = False      # ring exchange of depth-rank-range segments (parallel/ring.py)

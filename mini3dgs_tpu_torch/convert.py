@@ -100,3 +100,18 @@ def flagship_scene_numpy(capacity: int = 2048, n: int = 1024,
     camera = dict(R=np.eye(3), T=np.array([0.0, 0.0, -3.0]),
                   FoVx=math.radians(60), FoVy=math.radians(60))
     return params, alive, camera
+
+
+def ring_tile_lists(rank, tile_start, tile_count, seg_offset) -> list:
+    """The per-band, per-tile depth-rank lists of one origin of the ring
+    binning: `lists[b][t]` are the ranks of band b's tile t in stream
+    order.  `rank` is the origin's flat stream of depth ranks, `tile_start`
+    and `tile_count` [n_bands, T_band] its segment-local tile ranges and
+    `seg_offset[b]` the place of band b's segment in the stream: the JAX
+    `RingBinning` (`flat_rank`, segments `seg_capacity` apart) and the
+    port's (`s_rank`, `seg_start`) both read this way, as numpy arrays."""
+    rank, tile_start, tile_count = (np.asarray(a) for a in
+                                    (rank, tile_start, tile_count))
+    return [[rank[off + s:off + s + c].tolist()
+             for s, c in zip(tile_start[b], tile_count[b])]
+            for b, off in enumerate(seg_offset)]

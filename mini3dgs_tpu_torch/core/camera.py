@@ -63,6 +63,13 @@ class Camera:
     def replace(self, **changes) -> "Camera":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device) -> "Camera":
+        """The same view with its tensors on `device`."""
+        return self.replace(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     @classmethod
     def create(cls, uid: int, R, T, FoVx: float, FoVy: float, width: int,
                height: int, image_name: str = "", znear: float = 0.1,

@@ -83,6 +83,18 @@ class Gaussians:
     def replace(self, **changes) -> "Gaussians":
         return dataclasses.replace(self, **changes)
 
+    def _map(self, fn) -> "Gaussians":
+        return Gaussians(**{f.name: fn(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})
+
+    def to(self, device) -> "Gaussians":
+        """The same pool with every tensor on `device` (differentiable)."""
+        return self._map(lambda x: x.to(device))
+
+    def slots(self, lo: int, hi: int) -> "Gaussians":
+        """The pool of slots [lo, hi) only."""
+        return self._map(lambda x: x[lo:hi])
+
 
 def reset_opacity(g: Gaussians, new_opacity: float = 0.01) -> Gaussians:
     """Clamp alive opacities down to logit(new_opacity); the reset never

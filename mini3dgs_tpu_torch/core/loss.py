@@ -1,5 +1,6 @@
 """Photometric loss: (1 - lambda) * L1 + lambda * D-SSIM (counterpart of
-mini3dgs_tpu/core/loss.py; the band-sharded loss is not ported yet).
+mini3dgs_tpu/core/loss.py), over a whole image and over an image sharded
+into bands with a halo exchange.
 
 SSIM uses a separable Gaussian blur with window K = 11, sigma = K/6,
 C1 = 0.01^2, C2 = 0.03^2 and zero 'same' padding; the SSIM map is clamped
@@ -12,10 +13,12 @@ transpose.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh as M
 
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
@@ -28,13 +31,19 @@ def _gaussian_window(window_size: int, device=None) -> torch.Tensor:
     return g / g.sum()
 
 
-def _blur1d(img: torch.Tensor, g1d: torch.Tensor, axis: int) -> torch.Tensor:
+def _blur1d(img: torch.Tensor, g1d: torch.Tensor, axis: int,
+            mode: str = "same") -> torch.Tensor:
     """out[x] = sum_k g[k] * in[x + k - K//2] along `axis` (2 or 3 of
-    [B,C,H,W]), zero padding."""
+    [B,C,H,W]).  "same" pads with zeros; "valid" keeps only the outputs
+    whose window lies inside the input (K - 1 fewer)."""
     K = g1d.shape[0]
-    pad = K // 2
-    src = F.pad(img, (pad, pad, 0, 0) if axis == 3 else (0, 0, pad, pad))
-    n_out = img.shape[axis]
+    if mode == "same":
+        pad = K // 2
+        src = F.pad(img, (pad, pad, 0, 0) if axis == 3 else (0, 0, pad, pad))
+        n_out = img.shape[axis]
+    else:
+        src = img
+        n_out = img.shape[axis] - K + 1
     out = None
     for k in range(K):
         term = g1d[k] * src.narrow(axis, k, n_out)
@@ -79,3 +88,79 @@ def gaussian_loss(rendered: torch.Tensor, target: torch.Tensor,
     d = dssim(rendered, target)
     total = (1.0 - lambda_dssim) * l1 + lambda_dssim * d
     return total, {"l1": l1, "dssim": d, "total_loss": total}
+
+
+# ---------------------------------------------------------------------------
+# Band-sharded loss with halo exchange (the `tile` axis of parallel/mesh.py).
+#
+# The 11 x 11 SSIM window has radius 5, so a band can compute its rows of the
+# SSIM map exactly from a 5-row halo of (pred, target) exchanged with its
+# neighbours: 5 * W * 3 * 2 floats per border instead of the whole image.
+# `ppermute` hands zeros to a rank with no sender, which is the zero 'same'
+# padding at the image's top and bottom.
+# ---------------------------------------------------------------------------
+
+HALO = 5  # window_size // 2 for the fixed K = 11 window
+
+
+def _halo_extend(bands: Sequence[torch.Tensor],
+                 devices: Sequence) -> List[torch.Tensor]:
+    """Each [C, bh, W] band -> [C, bh + 2 * HALO, W] with its neighbours'
+    border rows (zeros at the image's ends)."""
+    n = len(bands)
+    tops = [b[:, :HALO] for b in bands]
+    bots = [b[:, -HALO:] for b in bands]
+    # the previous band's bottom rows become my top halo, the next band's
+    # top rows my bottom halo
+    prev_bot = M.ppermute(bots, [(i, i + 1) for i in range(n - 1)], devices)
+    next_top = M.ppermute(tops, [(i + 1, i) for i in range(n - 1)], devices)
+    return [torch.cat([p, b, t], dim=1)
+            for p, b, t in zip(prev_bot, bands, next_top)]
+
+
+def gaussian_loss_banded(band_preds: Sequence[torch.Tensor],
+                         band_targets: Sequence[torch.Tensor],
+                         devices: Sequence, lambda_dssim: float = 0.2,
+                         window_size: int = 11
+                         ) -> List[Tuple[torch.Tensor,
+                                         Dict[str, torch.Tensor]]]:
+    """`gaussian_loss` over an image sharded into equal bands of rows:
+    `band_preds[i]` / `band_targets[i]` are rank i's [3, bh, W] rows on
+    `devices[i]`.  Returns, per rank, the loss of the WHOLE image (summed
+    over the ranks) and its components: equal to `gaussian_loss` on the
+    assembled image up to the order of the final sums."""
+    if window_size != 2 * HALO + 1:
+        raise ValueError("the halo is derived for the K = 11 window")
+    C, bh, W = band_preds[0].shape
+    if bh < HALO:
+        raise ValueError(f"bands of {bh} rows are thinner than the halo")
+    denom = C * bh * len(devices) * W
+    preds = _halo_extend(band_preds, devices)
+    targets = _halo_extend(band_targets, devices)
+    l1_sums, ssim_sums = [], []
+    for p_band, t_band, pred, target in zip(band_preds, band_targets, preds,
+                                            targets):
+        pred, target = pred[None], target[None]
+        g1d = _gaussian_window(window_size, pred.device).to(pred.dtype)
+        # 'same' along x, 'valid' along y: on a band extended by its halo
+        # this is the whole image's 'same' blur restricted to the band's
+        # rows, summed in the same order.
+        stack = torch.cat([pred, target, pred ** 2, target ** 2,
+                           pred * target])
+        mu_x, mu_y, xx, yy, xy = _blur1d(
+            _blur1d(stack, g1d, axis=3), g1d, axis=2, mode="valid").chunk(5)
+        sigma_x = xx - mu_x ** 2
+        sigma_y = yy - mu_y ** 2
+        sigma_xy = xy - mu_x * mu_y
+        ssim_map = ((2 * mu_x * mu_y + C1) * (2 * sigma_xy + C2)) / (
+            (mu_x ** 2 + mu_y ** 2 + C1) * (sigma_x + sigma_y + C2))
+        ssim_sums.append(torch.clamp(ssim_map, 0.0, 1.0).sum())
+        l1_sums.append((p_band - t_band).abs().sum())
+    out = []
+    for l1_sum, ssim_sum in zip(M.psum(l1_sums, devices),
+                                M.psum(ssim_sums, devices)):
+        l1 = l1_sum / denom
+        d = 1.0 - ssim_sum / denom
+        total = (1.0 - lambda_dssim) * l1 + lambda_dssim * d
+        out.append((total, {"l1": l1, "dssim": d, "total_loss": total}))
+    return out

@@ -1,8 +1,10 @@
 // Backward tile rasterizer for Hopper (sm_90a): the gradient of
 // raster_fwd.cu with respect to the instance stream.
 //
-// Replaces the TPU kernel mini3dgs_tpu/ops/raster_pallas.py `_bwd_kernel`
-// (built by `_make_raster_op` with has_t0=False, the VJP of `_fwd_kernel`).
+// Replaces the TPU kernel mini3dgs_tpu/ops/raster_pallas.py `_bwd_kernel`,
+// the VJP of `_fwd_kernel`, in both builds of `_make_raster_op`:
+// has_t0=False (kHasT0 = false, `raster_bwd_launch`) and has_t0=True (the
+// ring route; kHasT0 = true, `raster_bwd_t0_launch`).
 // Same function: for every tile, replay the tile's slice
 // [tile_start, tile_start + tile_count) front to back with the forward
 // kernel's alpha and gate arithmetic and, from the cotangent `gout` of the
@@ -25,6 +27,17 @@
 //     d_qa += d_lw dx^2   d_qb += d_lw dx dy   d_qc += d_lw dy^2
 //   d_[r,g,b,depth] += gout_[r,g,b,d] * wgt
 // each summed over the tile's P pixels.
+//
+// With kHasT0 (see raster_fwd.cu) T starts at t0 and row 5 of oraw is the
+// transmittance T_end the pixel ended with, row 5 of gout its cotangent.
+// Every contribution and T_end are linear in t0 and T_end carries the factor
+// (1 - alpha) of every instance passed with the gate open, so
+//   total = <gout[0..5, p], oraw[0..5, p]>
+// makes S carry the term gout_T * T_end of the ranges behind this stream, and
+//   dt0[p] = total / max(t0[p], 1e-30)
+// is the cotangent of t0; it is stored for every pixel of every tile, so
+// dt0 needs no zero fill.  Without kHasT0 the kernel reads no t0 and no row
+// 5 and writes no dt0.  Block t works on image tile tile0 + t.
 //
 // Design: one block per tile and 256 threads, as in the forward kernel;
 // a thread owns P/256 pixels (1 at tile 16, 4 at tile 32) and keeps their
@@ -74,21 +87,22 @@ constexpr float kWEps = 1e-5f;
 constexpr float kEarlyStopA = 0.995f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-template <int kPix>
+template <int kPix, bool kHasT0>
 __global__ void __launch_bounds__(kThreads)
 raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_count, int tiles_x,
-                  int tile_size, const float* __restrict__ oraw,
-                  const float* __restrict__ gout, float* __restrict__ d_inst) {
+                  int tile_size, int tile0, const float* __restrict__ oraw,
+                  const float* __restrict__ gout, const float* __restrict__ t0,
+                  float* __restrict__ d_inst, float* __restrict__ dt0) {
   __shared__ float sh[kRows][kChunk];
   __shared__ float part[kWarps][kRows][kChunk];
   constexpr int P = kThreads * kPix;
   const int t = blockIdx.x;
   const int64_t start = tile_start[t];
   const int count = tile_count[t];
-  const int tx = t % tiles_x;
-  const int ty = t / tiles_x;
+  const int tx = (tile0 + t) % tiles_x;
+  const int ty = (tile0 + t) / tiles_x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -102,9 +116,7 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
     const int i = threadIdx.x + k * kThreads;
     px[k] = static_cast<float>(tx * tile_size + i % tile_size);
     py[k] = static_cast<float>(ty * tile_size + i / tile_size);
-    T[k] = 1.0f;
     prefix[k] = 0.0f;
-    live[k] = true;
     g_r[k] = go[0 * P + i];
     g_g[k] = go[1 * P + i];
     g_b[k] = go[2 * P + i];
@@ -113,6 +125,16 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
     total[k] = g_r[k] * oo[0 * P + i] + g_g[k] * oo[1 * P + i] +
                g_b[k] * oo[2 * P + i] + g_d[k] * oo[3 * P + i] +
                g_a[k] * oo[4 * P + i];
+    if constexpr (kHasT0) {
+      const float t_in = t0[static_cast<int64_t>(t) * P + i];
+      total[k] += go[5 * P + i] * oo[5 * P + i];
+      dt0[static_cast<int64_t>(t) * P + i] = total[k] / fmaxf(t_in, 1e-30f);
+      T[k] = t_in;
+      live[k] = 1.0f - t_in < kEarlyStopA;
+    } else {
+      T[k] = 1.0f;
+      live[k] = true;
+    }
   }
 
   for (int base = 0; base < count; base += kChunk) {
@@ -206,29 +228,55 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
   }
 }
 
-}  // namespace
-
-// inst: [10, n_live] float32; tile_start/tile_count: [num_tiles] int32;
-// oraw, gout: [num_tiles, 8, tile_size^2] float32; d_inst: [10, n_live]
-// float32, zero-filled by the caller.  Launches on `stream` and returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int raster_bwd_launch(const float* inst, long long n_live,
-                                 const int* tile_start, const int* tile_count,
-                                 int num_tiles, int tiles_x, int tile_size,
-                                 const float* oraw, const float* gout,
-                                 float* d_inst, void* stream) {
+template <bool kHasT0>
+int launch(const float* inst, int64_t n_live, const int* tile_start,
+           const int* tile_count, int num_tiles, int tiles_x, int tile_size,
+           int tile0, const float* oraw, const float* gout, const float* t0,
+           float* d_inst, float* dt0, void* stream) {
   if (num_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_size == 16) {
-    raster_bwd_kernel<1><<<num_tiles, kThreads, 0, s>>>(
-        inst, n_live, tile_start, tile_count, tiles_x, tile_size, oraw, gout,
-        d_inst);
+    raster_bwd_kernel<1, kHasT0><<<num_tiles, kThreads, 0, s>>>(
+        inst, n_live, tile_start, tile_count, tiles_x, tile_size, tile0, oraw,
+        gout, t0, d_inst, dt0);
   } else if (tile_size == 32) {
-    raster_bwd_kernel<4><<<num_tiles, kThreads, 0, s>>>(
-        inst, n_live, tile_start, tile_count, tiles_x, tile_size, oraw, gout,
-        d_inst);
+    raster_bwd_kernel<4, kHasT0><<<num_tiles, kThreads, 0, s>>>(
+        inst, n_live, tile_start, tile_count, tiles_x, tile_size, tile0, oraw,
+        gout, t0, d_inst, dt0);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// inst: [10, n_live] float32; tile_start/tile_count: [num_tiles] int32;
+// oraw, gout: [num_tiles, 8, tile_size^2] float32; d_inst: [10, n_live]
+// float32, zero-filled by the caller; block t works on image tile tile0 + t.
+// Launches on `stream` and returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int raster_bwd_launch(const float* inst, long long n_live,
+                                 const int* tile_start, const int* tile_count,
+                                 int num_tiles, int tiles_x, int tile_size,
+                                 int tile0, const float* oraw,
+                                 const float* gout, float* d_inst,
+                                 void* stream) {
+  return launch<false>(inst, n_live, tile_start, tile_count, num_tiles,
+                       tiles_x, tile_size, tile0, oraw, gout, nullptr, d_inst,
+                       nullptr, stream);
+}
+
+// The same with the incoming transmittance t0: [num_tiles, tile_size^2]
+// float32; also writes its cotangent dt0, of the same shape (every element).
+extern "C" int raster_bwd_t0_launch(const float* inst, long long n_live,
+                                    const int* tile_start,
+                                    const int* tile_count, int num_tiles,
+                                    int tiles_x, int tile_size, int tile0,
+                                    const float* oraw, const float* gout,
+                                    const float* t0, float* d_inst,
+                                    float* dt0, void* stream) {
+  return launch<true>(inst, n_live, tile_start, tile_count, num_tiles,
+                      tiles_x, tile_size, tile0, oraw, gout, t0, d_inst, dt0,
+                      stream);
 }

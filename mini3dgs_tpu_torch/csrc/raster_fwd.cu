@@ -2,11 +2,26 @@
 // raster_bwd.cu, which replays the same alpha and gate arithmetic.
 //
 // Replaces the TPU kernel mini3dgs_tpu/ops/raster_pallas.py `_fwd_kernel`
-// (built by `_make_raster_op` with has_t0=False and called from
-// `rasterize_tiles`).  Same function: for every image tile, composite the
-// tile's depth-sorted slice [tile_start, tile_start + tile_count) of the
+// in both builds of `_make_raster_op`: has_t0=False (called from
+// `rasterize_tiles`; here kHasT0 = false, `raster_fwd_launch`) and
+// has_t0=True (the ring route of parallel/ring.py; kHasT0 = true,
+// `raster_fwd_t0_launch`).  Same function: for every image tile, composite
+// the tile's depth-sorted slice [tile_start, tile_start + tile_count) of the
 // instance stream front to back into raw accumulators [r, g, b, depth, alpha]
 // per pixel, written as out[tile][8][P] (rows 5..7 are zero).
+//
+// With kHasT0 the per-pixel transmittance starts at t0[tile][P] (what the
+// depth ranges in front of this stream left) instead of 1, so the gate and
+// the early stop read the accumulated alpha of the whole chain, and row 5 of
+// the output is the transmittance the pixel ends with: t0 times (1 - alpha)
+// of every instance it passed with its gate open.  A block whose pixels all
+// arrive closed leaves before its first chunk.  Without kHasT0 the kernel
+// loads no t0 and stores zeros in row 5: the single-pass path pays nothing
+// for the chain.
+//
+// Block t works on image tile tile0 + t: a launch may cover a band of the
+// image (tile0 = the band's first tile, whole tile rows) with tile_start and
+// tile_count indexed from the band's first tile.
 //
 // Per pixel x instance (the conic rows are pre-scaled so the quadratic form
 // is log w):
@@ -14,7 +29,8 @@
 //   alpha = (w >= 1e-5) ? min(op*w, 1) : 0
 //   contribution = T * alpha, only while (1 - T) < 0.995, where T is the
 //   ungated transmittance before the instance; then T *= (1 - alpha).
-// Pixel coordinates are the integers px = tx*ts + i % ts, py = ty*ts + i / ts.
+// Pixel coordinates are the integers px = tx*ts + i % ts, py = ty*ts + i / ts,
+// with tx, ty the column and row of image tile tile0 + t.
 //
 // Design: one block per tile, 256 threads; each thread owns P/256 pixels
 // (1 at tile 16, 4 at tile 32, so a block never needs more than 256 threads
@@ -53,19 +69,20 @@ constexpr int kAcc = 8;
 constexpr float kWEps = 1e-5f;
 constexpr float kEarlyStopA = 0.995f;
 
-template <int kPix>
+template <int kPix, bool kHasT0>
 __global__ void __launch_bounds__(kThreads)
 raster_fwd_kernel(const float* __restrict__ inst, int64_t n_live,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_count, int tiles_x,
-                  int tile_size, float* __restrict__ out) {
+                  int tile_size, int tile0, const float* __restrict__ t0,
+                  float* __restrict__ out) {
   __shared__ float sh[kRows][kChunk];
   constexpr int P = kThreads * kPix;
   const int t = blockIdx.x;
   const int64_t start = tile_start[t];
   const int count = tile_count[t];
-  const int tx = t % tiles_x;
-  const int ty = t / tiles_x;
+  const int tx = (tile0 + t) % tiles_x;
+  const int ty = (tile0 + t) / tiles_x;
 
   float px[kPix], py[kPix], T[kPix], acc[kPix][5];
   bool live[kPix];
@@ -74,8 +91,13 @@ raster_fwd_kernel(const float* __restrict__ inst, int64_t n_live,
     const int i = threadIdx.x + k * kThreads;
     px[k] = static_cast<float>(tx * tile_size + i % tile_size);
     py[k] = static_cast<float>(ty * tile_size + i / tile_size);
-    T[k] = 1.0f;
-    live[k] = true;
+    if constexpr (kHasT0) {
+      T[k] = t0[static_cast<int64_t>(t) * P + i];
+      live[k] = 1.0f - T[k] < kEarlyStopA;
+    } else {
+      T[k] = 1.0f;
+      live[k] = true;
+    }
 #pragma unroll
     for (int c = 0; c < 5; ++c) acc[k][c] = 0.0f;
   }
@@ -128,30 +150,54 @@ raster_fwd_kernel(const float* __restrict__ inst, int64_t n_live,
     const int i = threadIdx.x + k * kThreads;
 #pragma unroll
     for (int c = 0; c < 5; ++c) o[c * P + i] = acc[k][c];
+    o[5 * P + i] = kHasT0 ? T[k] : 0.0f;
 #pragma unroll
-    for (int c = 5; c < kAcc; ++c) o[c * P + i] = 0.0f;
+    for (int c = 6; c < kAcc; ++c) o[c * P + i] = 0.0f;
   }
+}
+
+template <bool kHasT0>
+int launch(const float* inst, int64_t n_live, const int* tile_start,
+           const int* tile_count, int num_tiles, int tiles_x, int tile_size,
+           int tile0, const float* t0, float* out, void* stream) {
+  if (num_tiles == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_size == 16) {
+    raster_fwd_kernel<1, kHasT0><<<num_tiles, kThreads, 0, s>>>(
+        inst, n_live, tile_start, tile_count, tiles_x, tile_size, tile0, t0,
+        out);
+  } else if (tile_size == 32) {
+    raster_fwd_kernel<4, kHasT0><<<num_tiles, kThreads, 0, s>>>(
+        inst, n_live, tile_start, tile_count, tiles_x, tile_size, tile0, t0,
+        out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // inst: [10, n_live] float32; tile_start/tile_count: [num_tiles] int32;
-// out: [num_tiles, 8, tile_size^2] float32.  Launches on `stream` and
-// returns the cudaError_t of the launch (0 on success).
+// out: [num_tiles, 8, tile_size^2] float32; block t rasterizes image tile
+// tile0 + t.  Launches on `stream` and returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int raster_fwd_launch(const float* inst, long long n_live,
                                  const int* tile_start, const int* tile_count,
                                  int num_tiles, int tiles_x, int tile_size,
-                                 float* out, void* stream) {
-  if (num_tiles == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_size == 16) {
-    raster_fwd_kernel<1><<<num_tiles, kThreads, 0, s>>>(
-        inst, n_live, tile_start, tile_count, tiles_x, tile_size, out);
-  } else if (tile_size == 32) {
-    raster_fwd_kernel<4><<<num_tiles, kThreads, 0, s>>>(
-        inst, n_live, tile_start, tile_count, tiles_x, tile_size, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int tile0, float* out, void* stream) {
+  return launch<false>(inst, n_live, tile_start, tile_count, num_tiles,
+                       tiles_x, tile_size, tile0, nullptr, out, stream);
+}
+
+// The same with the incoming transmittance t0: [num_tiles, tile_size^2]
+// float32; row 5 of `out` is the outgoing transmittance.
+extern "C" int raster_fwd_t0_launch(const float* inst, long long n_live,
+                                    const int* tile_start,
+                                    const int* tile_count, int num_tiles,
+                                    int tiles_x, int tile_size, int tile0,
+                                    const float* t0, float* out,
+                                    void* stream) {
+  return launch<true>(inst, n_live, tile_start, tile_count, num_tiles,
+                      tiles_x, tile_size, tile0, t0, out, stream);
 }

@@ -1,5 +1,6 @@
 """Tile binning: (tile, depth-rank) instances, sort, per-tile ranges
-(counterpart of mini3dgs_tpu/ops/binning.py, single-device path).
+(counterpart of mini3dgs_tpu/ops/binning.py: the single-device path and
+the ring route's origin binning, ring v1).
 
 Each visible Gaussian is duplicated into one instance per image tile its
 footprint overlaps; instances are sorted by the composite key
@@ -163,20 +164,34 @@ def _layout(s_tile: torch.Tensor, num_tiles: int):
     return start.int(), count.int()
 
 
-def bin_gaussians(proj: Projected, H: int, W: int,
-                  tile_size: int) -> Binning:
-    """Bin the projected Gaussians into the tiles of an [H, W] image."""
+def _sorted_keys(proj: Projected, H: int, W: int, tile_size: int,
+                 rank_range=None):
+    """The sorted (tile << 32 | depth rank) keys of the instances, with
+    (order, inv_order, counts_gid).  `rank_range` = (lo, hi) keeps only the
+    Gaussians whose depth rank lies in [lo, hi)."""
     C = proj.means2d.shape[0]
     tiles_x = -(-W // tile_size)
-    num_tiles = tiles_x * -(-H // tile_size)
     tx0, ty0, sx, sy = _viewport_spans(proj, H, W, tile_size)
-    gid, tx, ty, counts_gid = _grid_counts(proj, tx0, ty0, sx, sy, tile_size)
     order = _depth_order(proj)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(C, device=order.device)
+    if rank_range is not None:
+        in_range = (inv_order >= rank_range[0]) & (inv_order < rank_range[1])
+        zero = torch.zeros_like(sx)
+        sx, sy = torch.where(in_range, sx, zero), torch.where(in_range, sy,
+                                                              zero)
+    gid, tx, ty, counts_gid = _grid_counts(proj, tx0, ty0, sx, sy, tile_size)
     # One int64 sort key per instance: tile in the high word, depth rank in
     # the low word, so the sorted stream is tile-major and front-to-back.
     s_key = torch.sort((ty * tiles_x + tx) << 32 | inv_order[gid]).values
+    return s_key, order, inv_order, counts_gid
+
+
+def bin_gaussians(proj: Projected, H: int, W: int,
+                  tile_size: int) -> Binning:
+    """Bin the projected Gaussians into the tiles of an [H, W] image."""
+    num_tiles = -(-W // tile_size) * -(-H // tile_size)
+    s_key, order, inv_order, counts_gid = _sorted_keys(proj, H, W, tile_size)
     s_rank = s_key & 0xFFFFFFFF
     tile_start, tile_count = _layout(s_key >> 32, num_tiles)
     return Binning(s_rank=s_rank, order=order, inv_order=inv_order,
@@ -184,7 +199,69 @@ def bin_gaussians(proj: Projected, H: int, W: int,
                    tile_count=tile_count, n_live=int(s_key.shape[0]))
 
 
-def pack_instances(attrs: torch.Tensor, b: Binning) -> torch.Tensor:
+class RingBinning(NamedTuple):
+    """Origin-side binning of the ring-exchange raster (parallel/ring.py):
+    the instances of ONE depth-rank range, for every image band.  The
+    stream is tile-major over the whole image, so band b's segment is the
+    contiguous slice [seg_start[b], seg_start[b + 1]) of it, in (tile,
+    rank) order, with tile ranges local to the segment."""
+
+    s_rank: torch.Tensor      # [n_live] depth rank of each sorted instance
+    order: torch.Tensor       # [C] gaussian id at each depth rank
+    counts_gid: torch.Tensor  # [C] instances emitted per gaussian id
+    tile_start: torch.Tensor  # [n_bands, T_band] int32, segment-local
+    tile_count: torch.Tensor  # [n_bands, T_band] int32
+    seg_start: tuple          # n_bands + 1 ints: the segments' bounds
+    n_live: int               # instances of this range, all bands
+    n_dropped: int = 0
+
+    @property
+    def gauss_id(self) -> torch.Tensor:
+        """[n_live] source Gaussian of each instance."""
+        return self.order[self.s_rank]
+
+
+def bin_gaussians_ring_origin(proj: Projected, full_h: int, full_w: int,
+                              tile_size: int, range_index: int,
+                              n_shards: int) -> RingBinning:
+    """Ring-exchange origin binning for depth-rank range `range_index` of
+    `n_shards` (counterpart of the JAX `bin_gaussians_ring_origin`).
+
+    Depth ranks come from one stable sort over the full set, invisible rows
+    last; range r is ranks [r * C/n, (r + 1) * C/n) of the pool's capacity
+    C, so late ranges may hold only invisible rows.  Front-to-back
+    compositing is associative but not commutative: range r lies behind
+    every range < r everywhere, so a band can composite the ranges one
+    after another with the transmittance carried.  The union over the
+    ranges of band b's segments is the single-device stream of band b's
+    tiles as a multiset.  A segment holds exactly its live instances:
+    nothing is dropped."""
+    C = proj.means2d.shape[0]
+    tiles_x = -(-full_w // tile_size)
+    tiles_y = -(-full_h // tile_size)
+    if C % n_shards:
+        raise ValueError(f"capacity {C} must divide over the {n_shards} ring "
+                         "devices")
+    if tiles_y % n_shards:
+        raise ValueError(f"{tiles_y} tile rows must divide into {n_shards} "
+                         "bands")
+    Cs = C // n_shards
+    ntb = tiles_y // n_shards * tiles_x
+    s_key, order, _, counts_gid = _sorted_keys(
+        proj, full_h, full_w, tile_size,
+        rank_range=(range_index * Cs, (range_index + 1) * Cs))
+    start, count = _layout(s_key >> 32, tiles_x * tiles_y)
+    start, count = start.reshape(n_shards, ntb), count.reshape(n_shards, ntb)
+    n_live = int(s_key.shape[0])
+    seg_start = (*start[:, 0].tolist(), n_live)
+    return RingBinning(s_rank=s_key & 0xFFFFFFFF, order=order,
+                       counts_gid=counts_gid,
+                       tile_start=start - start[:, :1], tile_count=count,
+                       seg_start=seg_start, n_live=n_live)
+
+
+def pack_instances(attrs: torch.Tensor, b) -> torch.Tensor:
     """Gather per-Gaussian attribute rows [R, C] into the stream layout the
-    raster kernel reads: [R, n_live], instance i = Gaussian gauss_id[i]."""
+    raster kernel reads: [R, n_live], instance i = Gaussian gauss_id[i] of
+    the `Binning` or `RingBinning` b."""
     return attrs.index_select(1, b.gauss_id).contiguous()

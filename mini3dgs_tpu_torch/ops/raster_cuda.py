@@ -9,6 +9,14 @@ ctypes); on CPU tensors they run the plain PyTorch versions
 and are what the kernels are held against on the card.  `raster_op` joins
 the pair into one differentiable function, and `rasterize_tiles` is the
 renderer's tile path: binning -> pack -> raster_op -> epilogue.
+
+Each kernel has two builds.  Without `t0` a pixel's transmittance starts
+at 1 (the single-pass path).  With `t0` [T, 1, P] it starts at the
+transmittance the depth ranges in front of this stream left (the ring
+route, parallel/ring.py): the forward writes the transmittance it ends with
+into accumulator row 5, the backward also returns the cotangent of `t0`.
+`tile0` is the image tile of the launch's first block, so a launch can
+cover a band of whole tile rows.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -53,9 +61,10 @@ def instance_attrs(proj: Projected) -> torch.Tensor:
     ], dim=0)
 
 
-def _pixel_coords(num_tiles, tiles_x, tile_size, device):
-    """[T, P] float pixel coordinates of every tile's pixels."""
-    t = torch.arange(num_tiles, device=device)[:, None]
+def _pixel_coords(num_tiles, tiles_x, tile_size, device, tile0=0):
+    """[T, P] float pixel coordinates of the pixels of image tiles
+    tile0 .. tile0 + T."""
+    t = tile0 + torch.arange(num_tiles, device=device)[:, None]
     i = torch.arange(tile_size * tile_size, device=device)[None, :]
     px = (t % tiles_x) * tile_size + i % tile_size
     py = torch.div(t, tiles_x, rounding_mode="floor") * tile_size \
@@ -68,7 +77,8 @@ def _slice_terms(stream, start, count, px, py, trans, base, lanes):
     instances base .. base + len(lanes) of each tile: [T, P, G] tensors (and
     `valid` [T, G], `idx` [T, G] stream columns, `row(r)` [T, 1, G]), with
     the transmittance as a cumulative product within the slice, seeded by
-    the carried `trans` [T, P]."""
+    the carried `trans` [T, P].  The `trans` handed on is the kernels': a
+    pixel's transmittance stops falling once its gate has closed."""
     j = base + lanes
     valid = j < count                                       # [T, G]
     idx = (start + j).clamp(max=stream.shape[1] - 1)
@@ -87,28 +97,36 @@ def _slice_terms(stream, start, count, px, py, trans, base, lanes):
     T_before = trans[:, :, None] * torch.cat(
         [torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
     gate = (1.0 - T_before) < EARLY_STOP_A
+    passed = torch.cumprod(
+        1.0 - torch.where(gate, alpha, torch.zeros_like(w)), dim=-1)
     return dict(row=row, valid=valid, idx=idx, dx=dx, dy=dy, w=w,
                 a_raw=a_raw, live=live, alpha=alpha, T_before=T_before,
                 gate=gate, wgt=T_before * alpha * gate,
-                trans=trans * cp[..., -1])
+                trans=trans * passed[..., -1])
 
 
 def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                      tile_count: torch.Tensor, tiles_x: int, tile_size: int,
+                     t0: Optional[torch.Tensor] = None, tile0: int = 0,
                      chunk: int = 64) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: all tiles at once, one
     `chunk`-wide slice of every tile's instance list per step.  Returns
-    [T, 8, P] float32."""
+    [T, 8, P] float32; with `t0` [T, 1, P] the transmittance starts there
+    and row 5 holds what it ends with."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
     dev = stream.device
     out = torch.zeros(T, N_ACC, P, dtype=torch.float32, device=dev)
+    if t0 is None:
+        trans = torch.ones(T, P, dtype=torch.float32, device=dev)
+    else:
+        trans = t0.reshape(T, P)
+        out[:, 5] = trans
     if T == 0 or stream.shape[1] == 0:
         return out
-    px, py = _pixel_coords(T, tiles_x, tile_size, dev)
+    px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
     start = tile_start.long()[:, None]
     count = tile_count.long()[:, None]
-    trans = torch.ones(T, P, dtype=torch.float32, device=dev)
     acc = [torch.zeros(T, P, dtype=torch.float32, device=dev)
            for _ in range(5)]
     lanes = torch.arange(chunk, device=dev)[None, :]
@@ -121,6 +139,8 @@ def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
         acc[4] = acc[4] + m["wgt"].sum(-1)
         trans = m["trans"]
     out[:, :5] = torch.stack(acc, dim=1)
+    if t0 is not None:
+        out[:, 5] = trans
     return out
 
 
@@ -128,7 +148,8 @@ def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
 def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                      tile_count: torch.Tensor, tiles_x: int, tile_size: int,
                      acc: torch.Tensor, gout: torch.Tensor,
-                     chunk: int = 64) -> torch.Tensor:
+                     t0: Optional[torch.Tensor] = None, tile0: int = 0,
+                     chunk: int = 64):
     """Plain PyTorch version of the backward kernel, written by hand with
     the kernel's masks (not derived by autograd: `torch.clamp` gives the
     whole gradient at an exact tie op*w == 1 or w == 1, the kernel none).
@@ -139,19 +160,32 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
         d_alpha_j = u_j T_j - S_j / (1 - alpha_j)   while the gate is open,
     chained through alpha = min(op w, 1) (w >= 1e-5) and w = min(exp lw, 1),
     and summed over the tile's pixels.  A pixel whose gate has closed gives
-    every later instance exactly 0."""
+    every later instance exactly 0.
+
+    With `t0` [T, 1, P] the transmittance starts there, <gout, acc> also
+    takes row 5 (the outgoing transmittance and its cotangent: both are
+    linear in t0, and what lies behind j is proportional to 1 - alpha_j),
+    and the result is (d_stream, d_t0) with d_t0 = <gout, acc> /
+    max(t0, 1e-30) of t0's shape."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
     dev = stream.device
     d_stream = torch.zeros_like(stream)
+    if t0 is None:
+        total = (gout[:, :5] * acc[:, :5]).sum(1)[:, :, None]   # [T, P, 1]
+        trans = torch.ones(T, P, dtype=torch.float32, device=dev)
+        result = d_stream
+    else:
+        total = (gout[:, :6] * acc[:, :6]).sum(1)[:, :, None]
+        trans = t0.reshape(T, P)
+        result = (d_stream, (total[:, :, 0] / trans.clamp(min=1e-30))
+                  .reshape(t0.shape))
     if T == 0 or stream.shape[1] == 0:
-        return d_stream
-    px, py = _pixel_coords(T, tiles_x, tile_size, dev)
+        return result
+    px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
     start = tile_start.long()[:, None]
     count = tile_count.long()[:, None]
     g_r, g_g, g_b, g_d, g_a = (gout[:, k, :, None] for k in range(5))
-    total = (gout[:, :5] * acc[:, :5]).sum(1)[:, :, None]   # [T, P, 1]
-    trans = torch.ones(T, P, dtype=torch.float32, device=dev)
     prefix = torch.zeros(T, P, 1, dtype=torch.float32, device=dev)
     lanes = torch.arange(chunk, device=dev)[None, :]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -181,7 +215,7 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
         d_stream[:, m["idx"][valid]] = rows[:, valid]
         trans = m["trans"]
         prefix = incl[..., -1:]
-    return d_stream
+    return result
 
 
 class KernelLibrary(NamedTuple):
@@ -252,18 +286,39 @@ def kernel_library() -> KernelLibrary:
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.raster_fwd_launch.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, i32,
-                                      i32, i32, ptr, ptr]
-    lib.raster_bwd_launch.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, i32,
-                                      i32, i32, ptr, ptr, ptr, ptr]
-    lib.raster_fwd_launch.restype = lib.raster_bwd_launch.restype = i32
+    # (inst, n_live, tile_start, tile_count, num_tiles, tiles_x, tile_size,
+    #  tile0, ...)
+    head = [ptr, ctypes.c_longlong, ptr, ptr, i32, i32, i32, i32]
+    lib.raster_fwd_launch.argtypes = head + [ptr, ptr]
+    lib.raster_fwd_t0_launch.argtypes = head + [ptr, ptr, ptr]
+    lib.raster_bwd_launch.argtypes = head + [ptr, ptr, ptr, ptr]
+    lib.raster_bwd_t0_launch.argtypes = head + [ptr, ptr, ptr, ptr, ptr, ptr]
+    for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
+               lib.raster_bwd_launch, lib.raster_bwd_t0_launch):
+        fn.restype = i32
     return KernelLibrary(lib, path, seconds, log)
 
 
+def check_tile_ranges(n_inst, tile_start: torch.Tensor,
+                      tile_count: torch.Tensor) -> None:
+    """Raise when a tile range [start, start + count) reaches past the
+    stream's `n_inst` columns (a kernel would read outside the stream).
+    `tile_start` / `tile_count` may carry leading dimensions, with `n_inst`
+    a tensor that broadcasts against them without the last: a set of
+    streams is then checked with one wait for the device."""
+    if tile_start.numel() == 0:
+        return
+    end = (tile_start.long() + tile_count).amax(dim=-1)
+    if bool((end > n_inst).any()):
+        raise ValueError("a tile range reaches past the end of the stream")
+
+
 def _check_raster_args(name, stream, tile_start, tile_count, tiles_x,
-                       tile_size, *accs) -> torch.device:
+                       tile_size, *accs, t0=None, tile0=0,
+                       ranges_checked=False) -> torch.device:
     """Raise on what the kernels do not take; returns the common device.
-    `accs` are [T, 8, P] float32 tensors (accumulators, cotangent)."""
+    `accs` are [T, 8, P] float32 tensors (accumulators, cotangent), `t0`
+    is None or [T, 1, P] float32."""
     T = tile_start.shape[0]
     if stream.dtype != torch.float32 or stream.dim() != 2 \
             or stream.shape[0] != B.STREAM_ROWS:
@@ -276,12 +331,22 @@ def _check_raster_args(name, stream, tile_start, tile_count, tiles_x,
     if T % tiles_x:
         raise ValueError(f"{T} tiles is not a whole number of rows of "
                          f"{tiles_x}")
+    if tile0 % tiles_x or tile0 < 0:
+        raise ValueError(f"tile0 {tile0} is not the first tile of a row of "
+                         f"{tiles_x}")
     shape = (T, N_ACC, tile_size * tile_size)
     for v in accs:
         if v.dtype != torch.float32 or v.shape != shape:
             raise ValueError(f"accumulators must be float32 {shape}, got "
                              f"{v.dtype} {tuple(v.shape)}")
-    devices = {v.device for v in (stream, tile_start, tile_count, *accs)}
+    if t0 is not None and (t0.dtype != torch.float32
+                           or t0.shape != (T, 1, shape[2])):
+        raise ValueError(f"t0 must be float32 {(T, 1, shape[2])}, got "
+                         f"{t0.dtype} {tuple(t0.shape)}")
+    tensors = [stream, tile_start, tile_count, *accs]
+    if t0 is not None:
+        tensors.append(t0)
+    devices = {v.device for v in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
     device = stream.device
@@ -294,102 +359,142 @@ def _check_raster_args(name, stream, tile_start, tile_count, tiles_x,
         if not (stream.is_contiguous() and tile_start.is_contiguous()
                 and tile_count.is_contiguous()):
             raise ValueError(f"{name} needs contiguous tensors")
-        if T and int((tile_start.long() + tile_count).max()) \
-                > stream.shape[1]:
-            raise ValueError("a tile range reaches past the end of the "
-                             "stream")
+        if not ranges_checked:
+            check_tile_ranges(stream.shape[1], tile_start, tile_count)
     return device
 
 
 def raster_fwd(stream: torch.Tensor, tile_start: torch.Tensor,
-               tile_count: torch.Tensor, tiles_x: int,
-               tile_size: int) -> torch.Tensor:
+               tile_count: torch.Tensor, tiles_x: int, tile_size: int,
+               t0: Optional[torch.Tensor] = None, tile0: int = 0,
+               ranges_checked: bool = False) -> torch.Tensor:
     """Raw per-tile accumulators [T, 8, P] of the instance stream
-    [STREAM_ROWS, n_live].  CPU tensors take `raster_fwd_plain`; CUDA
-    tensors launch the kernel (and count the launch in
-    `raster_fwd.launches`) or raise.  The kernel's output carries no
-    autograd graph: `raster_op` is the differentiable function."""
+    [STREAM_ROWS, n_live]; block t covers image tile `tile0` + t.  With
+    `t0` [T, 1, P] the transmittance starts there and row 5 is what it
+    ends with.  CPU tensors take `raster_fwd_plain`; CUDA tensors launch
+    the kernel (and count the launch in `raster_fwd.launches`, or in
+    `raster_fwd.launches_t0` for the build with `t0`) or raise.
+    `ranges_checked` says the caller has held the tile ranges against the
+    stream's length itself (`check_tile_ranges`, which waits for the
+    device).  The kernel's output carries no autograd graph: `raster_op`
+    is the differentiable function."""
     device = _check_raster_args("raster_fwd", stream, tile_start, tile_count,
-                                tiles_x, tile_size)
+                                tiles_x, tile_size, t0=t0, tile0=tile0,
+                                ranges_checked=ranges_checked)
     if device.type == "cpu":
         return raster_fwd_plain(stream, tile_start, tile_count, tiles_x,
-                                tile_size)
+                                tile_size, t0, tile0)
     T = tile_start.shape[0]
     lib = kernel_library().lib
     out = torch.empty(T, N_ACC, tile_size * tile_size, dtype=torch.float32,
                       device=device)
-    rc = lib.raster_fwd_launch(
-        stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
-        tile_count.data_ptr(), T, tiles_x, tile_size, out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+    head = (stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
+            tile_count.data_ptr(), T, tiles_x, tile_size, tile0)
+    cuda_stream = torch.cuda.current_stream(device).cuda_stream
+    # The device of the tensors, not the current one, runs the kernel.
+    with torch.cuda.device(device):
+        if t0 is None:
+            rc = lib.raster_fwd_launch(*head, out.data_ptr(), cuda_stream)
+        else:
+            t0 = t0.contiguous()
+            rc = lib.raster_fwd_t0_launch(*head, t0.data_ptr(),
+                                          out.data_ptr(), cuda_stream)
     if rc != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {rc}")
-    raster_fwd.launches += 1
+    if t0 is None:
+        raster_fwd.launches += 1
+    else:
+        raster_fwd.launches_t0 += 1
     return out
 
 
 raster_fwd.launches = 0
+raster_fwd.launches_t0 = 0
 
 
 def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
                tile_count: torch.Tensor, tiles_x: int, tile_size: int,
-               acc: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+               acc: torch.Tensor, gout: torch.Tensor,
+               t0: Optional[torch.Tensor] = None, tile0: int = 0,
+               ranges_checked: bool = False):
     """Gradient [STREAM_ROWS, n_live] of the instance stream from the
-    cotangent `gout` [T, 8, P] of the forward accumulators `acc`.  CPU
-    tensors take `raster_bwd_plain`; CUDA tensors launch the kernel (and
-    count the launch in `raster_bwd.launches`) or raise."""
+    cotangent `gout` [T, 8, P] of the forward accumulators `acc`; with
+    `t0` the pair (d_stream, d_t0).  CPU tensors take `raster_bwd_plain`;
+    CUDA tensors launch the kernel (and count the launch in
+    `raster_bwd.launches`, or `raster_bwd.launches_t0`) or raise."""
     device = _check_raster_args("raster_bwd", stream, tile_start, tile_count,
-                                tiles_x, tile_size, acc, gout)
+                                tiles_x, tile_size, acc, gout, t0=t0,
+                                tile0=tile0, ranges_checked=ranges_checked)
     # The cotangent arrives through the epilogue's permute and slice.
     acc, gout = acc.contiguous(), gout.contiguous()
     if device.type == "cpu":
         return raster_bwd_plain(stream, tile_start, tile_count, tiles_x,
-                                tile_size, acc, gout)
+                                tile_size, acc, gout, t0, tile0)
     lib = kernel_library().lib
     # Zero-filled: the kernel leaves the rows behind a tile's early exit,
     # and any column no tile range covers, unwritten.
     d_stream = torch.zeros_like(stream)
-    rc = lib.raster_bwd_launch(
-        stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
-        tile_count.data_ptr(), tile_start.shape[0], tiles_x, tile_size,
-        acc.data_ptr(), gout.data_ptr(), d_stream.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+    head = (stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
+            tile_count.data_ptr(), tile_start.shape[0], tiles_x, tile_size,
+            tile0, acc.data_ptr(), gout.data_ptr())
+    cuda_stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        if t0 is None:
+            rc = lib.raster_bwd_launch(*head, d_stream.data_ptr(),
+                                       cuda_stream)
+        else:
+            t0 = t0.contiguous()
+            d_t0 = torch.empty_like(t0)  # the kernel writes every element
+            rc = lib.raster_bwd_t0_launch(*head, t0.data_ptr(),
+                                          d_stream.data_ptr(),
+                                          d_t0.data_ptr(), cuda_stream)
     if rc != 0:
         raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {rc}")
-    raster_bwd.launches += 1
-    return d_stream
+    if t0 is None:
+        raster_bwd.launches += 1
+        return d_stream
+    raster_bwd.launches_t0 += 1
+    return d_stream, d_t0
 
 
 raster_bwd.launches = 0
+raster_bwd.launches_t0 = 0
 
 
 class _RasterOp(torch.autograd.Function):
     """`raster_fwd` with `raster_bwd` as its gradient, on either device."""
 
     @staticmethod
-    def forward(ctx, stream, tile_start, tile_count, tiles_x, tile_size):
-        acc = raster_fwd(stream, tile_start, tile_count, tiles_x, tile_size)
-        ctx.save_for_backward(stream, tile_start, tile_count, acc)
-        ctx.tiles_x, ctx.tile_size = tiles_x, tile_size
+    def forward(ctx, stream, tile_start, tile_count, tiles_x, tile_size, t0,
+                tile0, ranges_checked):
+        acc = raster_fwd(stream, tile_start, tile_count, tiles_x, tile_size,
+                         t0, tile0, ranges_checked)
+        ctx.save_for_backward(stream, tile_start, tile_count, acc, t0)
+        ctx.tiles_x, ctx.tile_size, ctx.tile0 = tiles_x, tile_size, tile0
         return acc
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gout):
-        stream, tile_start, tile_count, acc = ctx.saved_tensors
+        stream, tile_start, tile_count, acc, t0 = ctx.saved_tensors
         with record_function("3dgs:raster_bwd"):
-            d_stream = raster_bwd(stream, tile_start, tile_count, ctx.tiles_x,
-                                  ctx.tile_size, acc, gout)
-        return d_stream, None, None, None, None
+            # The forward held these ranges against this stream.
+            d = raster_bwd(stream, tile_start, tile_count, ctx.tiles_x,
+                           ctx.tile_size, acc, gout, t0, ctx.tile0,
+                           ranges_checked=True)
+        d_stream, d_t0 = (d, None) if t0 is None else d
+        return d_stream, None, None, None, None, d_t0, None, None
 
 
 def raster_op(stream: torch.Tensor, tile_start: torch.Tensor,
-              tile_count: torch.Tensor, tiles_x: int,
-              tile_size: int) -> torch.Tensor:
+              tile_count: torch.Tensor, tiles_x: int, tile_size: int,
+              t0: Optional[torch.Tensor] = None, tile0: int = 0,
+              ranges_checked: bool = False) -> torch.Tensor:
     """Differentiable (once) raw accumulators [T, 8, P]: `raster_fwd`
-    forward, `raster_bwd` backward."""
+    forward, `raster_bwd` backward, with respect to the stream and, when
+    given, the incoming transmittance `t0` [T, 1, P]."""
     return _RasterOp.apply(stream, tile_start, tile_count, tiles_x,
-                           tile_size)
+                           tile_size, t0, tile0, ranges_checked)
 
 
 def tile_stream(proj: Projected, H: int, W: int, tile_size: int):
@@ -402,8 +507,9 @@ def tile_stream(proj: Projected, H: int, W: int, tile_size: int):
 
 def compose_image(acc: torch.Tensor, H: int, W: int, tile_size: int,
                   bg: torch.Tensor):
-    """The epilogue: raw accumulators [T, 8, P] -> (image [3,H,W] over the
-    background `bg`, alpha [1,H,W], depth [1,H,W])."""
+    """The epilogue: raw accumulators [T, 8, P] of an image (or band) of H
+    rows -> (image [3,H,W] over the background `bg`, alpha [1,H,W], depth
+    [1,H,W])."""
     tiles_x = -(-W // tile_size)
     tiles_y = -(-H // tile_size)
     img = acc.reshape(tiles_y, tiles_x, N_ACC, tile_size, tile_size)
@@ -415,15 +521,28 @@ def compose_image(acc: torch.Tensor, H: int, W: int, tile_size: int,
 
 
 def rasterize_tiles(proj: Projected, H: int, W: int, bg: torch.Tensor, *,
-                    tile_size: int = 16,
-                    fwd: Callable = raster_op) -> dict:
+                    tile_size: int = 16, fwd: Callable = raster_op,
+                    row0: int = 0, full_height: Optional[int] = None) -> dict:
     """Tile raster path: binning -> pack -> `fwd` (the kernel pair by
     default; `raster_fwd_plain` to compare against it) -> epilogue.
-    Differentiable with respect to the fields of `proj`."""
-    b, stream = tile_stream(proj, H, W, tile_size)
+    Differentiable with respect to the fields of `proj`.
+
+    With `full_height` the call renders the band of rows [row0, row0 + H)
+    of a `full_height` x W image: the whole image is binned and packed, and
+    the kernels run on the band's tile rows only (`tile0`).  The counters
+    are then those of the whole image's stream."""
+    full_h = H if full_height is None else full_height
+    tiles_x = -(-W // tile_size)
+    if row0 % tile_size or row0 + H > full_h \
+            or (H % tile_size and row0 + H != full_h):
+        raise ValueError(f"rows [{row0}, {row0 + H}) of {full_h} are not a "
+                         f"band of whole {tile_size}-pixel tile rows")
+    b, stream = tile_stream(proj, full_h, W, tile_size)
+    tile0 = row0 // tile_size * tiles_x
+    tiles = slice(tile0, tile0 + -(-H // tile_size) * tiles_x)
     with record_function("3dgs:raster_fwd"):
-        acc = fwd(stream, b.tile_start, b.tile_count, -(-W // tile_size),
-                  tile_size)
+        acc = fwd(stream, b.tile_start[tiles], b.tile_count[tiles], tiles_x,
+                  tile_size, tile0=tile0)
     with record_function("3dgs:epilogue"):
         image, alpha, depth = compose_image(acc, H, W, tile_size, bg)
     return {"image": image, "alpha": alpha, "depth": depth,

@@ -44,6 +44,12 @@ class RenderSettings:
     # filter and scale opacity by sqrt(det ratio).  Off by default.
     antialias: bool = False
     raster: str = "tiles"
+    # Ring exchange for the band-sharded raster (parallel/ring.py):
+    # instances partitioned by depth-rank range and passed around the ring
+    # of the mesh's `tile` axis, with the per-pixel transmittance carried
+    # from range to range.  Only the sharded entry points of
+    # parallel/sharded.py read it; `render` renders on one device.
+    ring: bool = False
 
     def replace(self, **changes) -> "RenderSettings":
         return dataclasses.replace(self, **changes)

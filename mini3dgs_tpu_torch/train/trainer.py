@@ -5,8 +5,10 @@
 State is functional, as in the JAX package: every step takes a `TrainState`
 and returns a new one, leaving its argument untouched.  PyTorch runs
 eagerly, so there is nothing to jit and a step is a plain function of
-(state, camera).  `GaussianTrainer` (datasets, checkpoints, capacity
-growth, compaction) is not ported yet.
+(state, camera).  The step over a mesh of ranks is
+parallel/sharded.make_sharded_train_step, which shares `apply_gradients`.
+`GaussianTrainer` (datasets, checkpoints, capacity growth, compaction) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -99,17 +101,46 @@ def train_step(state: TrainState, camera: Camera, config: TrainingConfig,
         wrt.append(exposure)
     with record_function("3dgs:backward"):
         grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
+    new_state = apply_gradients(state, params, probe, exposure, grads_all,
+                                config, settings, out["radii"].detach(),
+                                out["visibility_filter"])
+    metrics = {k: v.detach() for k, v in parts.items()}
+    metrics.update(render_drops=out["n_dropped"],
+                   render_drops_large=out["n_dropped_large"],
+                   render_instances=out["n_live"],
+                   render_n_large=out["n_large"],
+                   n_visible=out["visibility_filter"].sum())
+    return new_state, metrics
+
+
+def mask_dead_gradients(params: Dict[str, torch.Tensor], grads_all,
+                        alive: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-parameter gradients with the dead slots' rows (and a parameter
+    the loss does not reach) set to 0."""
+    grads = {}
+    for (k, p), gr in zip(params.items(), grads_all):
+        mask = alive.reshape((-1,) + (1,) * (p.ndim - 1))
+        grads[k] = torch.where(mask, torch.zeros_like(p) if gr is None else gr,
+                               torch.zeros_like(p))
+    return grads
+
+
+def apply_gradients(state: TrainState, params: Dict[str, torch.Tensor],
+                    probe: torch.Tensor, exposure: Optional[torch.Tensor],
+                    grads_all, config: TrainingConfig,
+                    settings: RenderSettings, radii: torch.Tensor,
+                    visible: torch.Tensor) -> TrainState:
+    """The second half of a step, shared by the single-device and the
+    sharded step: `grads_all` are the gradients of the leaves `params`,
+    `probe` and (when not None) `exposure`, in that order -> masked Adam ->
+    densify statistics with the forward pass's `radii` and `visible`."""
+    g0 = state.gaussians
     zero_if_none = lambda gr, ref: torch.zeros_like(ref) if gr is None else gr
     with record_function("3dgs:adam"):
         # Dead slots must not drift: zero their gradients (their Adam
         # moments are zeroed when the slot dies, so their updates stay
         # exactly 0).
-        alive = g0.alive
-        grads = {}
-        for (k, p), gr in zip(params.items(), grads_all):
-            mask = alive.reshape((-1,) + (1,) * (p.ndim - 1))
-            grads[k] = torch.where(mask, zero_if_none(gr, p),
-                                   torch.zeros_like(p))
+        grads = mask_dead_gradients(params, grads_all, g0.alive)
         vs_grads = zero_if_none(grads_all[len(params)], probe)
 
         detached = {k: v.detach() for k, v in params.items()}
@@ -128,16 +159,9 @@ def train_step(state: TrainState, camera: Camera, config: TrainingConfig,
                                          settings.image_height,
                                          settings.image_width)
         g = density.accumulate_grad_stats(
-            g0.with_params(new_params), stat, out["radii"].detach(),
-            out["visibility_filter"])
-    metrics = {k: v.detach() for k, v in parts.items()}
-    metrics.update(render_drops=out["n_dropped"],
-                   render_drops_large=out["n_dropped_large"],
-                   render_instances=out["n_live"],
-                   render_n_large=out["n_large"],
-                   n_visible=out["visibility_filter"].sum())
+            g0.with_params(new_params), stat, radii, visible)
     return TrainState(gaussians=g, opt_state=opt_state, step=state.step + 1,
-                      exposure=new_exposure, exp_opt_state=exp_opt), metrics
+                      exposure=new_exposure, exp_opt_state=exp_opt)
 
 
 def densify_step(state: TrainState, noise: torch.Tensor, scene_extent: float,

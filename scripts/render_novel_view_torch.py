@@ -5,8 +5,15 @@ Frames are written as float32 .npy arrays [4, H, W]: RGB composited over
 the background, then alpha.  The last line of standard output is one JSON
 object with the per-frame render times.
 
+With --tile-shards N the frames come from the band-sharded renderer
+(parallel/sharded.make_sharded_render) over a mesh of N ranks spread over
+the visible CUDA devices (on one card they all share it); --ring makes the
+bands exchange depth-rank-range segments around the ring, which needs a
+PLY whose point count divides by N.
+
 Usage: python scripts/render_novel_view_torch.py --ply model.ply \
            --output out/ [--n-frames 60] [--size 512] [--device cuda]
+           [--tile-shards 1] [--ring]
 """
 
 import argparse
@@ -21,6 +28,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render  # noqa: E402
+from mini3dgs_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from mini3dgs_tpu_torch.parallel.sharded import make_sharded_render  # noqa: E402
 from mini3dgs_tpu_torch.utils.gaussian_ply import import_gaussians_ply  # noqa: E402
 from mini3dgs_tpu_torch.utils.vis import turntable_cameras  # noqa: E402
 
@@ -45,6 +54,10 @@ def main(argv=None) -> int:
     p.add_argument("--tile-size", type=int, default=16)
     p.add_argument("--bg", type=_bg, default=(0.0, 0.0, 0.0))
     p.add_argument("--device", default="cuda")
+    p.add_argument("--tile-shards", type=int, default=1,
+                   help="ranks of the mesh's tile axis (image bands)")
+    p.add_argument("--ring", action="store_true",
+                   help="ring exchange between the bands (parallel/ring.py)")
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
@@ -57,14 +70,20 @@ def main(argv=None) -> int:
     settings = RenderSettings(image_height=args.size, image_width=args.size,
                               bg_color=args.bg, tile_size=args.tile_size,
                               color_mode=args.color_mode,
-                              sh_degree=args.sh_degree)
+                              sh_degree=args.sh_degree, ring=args.ring)
+    render_view = lambda cam: render(g, cam, settings)
+    if args.tile_shards > 1 or args.ring:
+        mesh = make_mesh(1, args.tile_shards,
+                         devices=None if device.type == "cuda" else [device])
+        sharded = make_sharded_render(settings, mesh)
+        render_view = lambda cam: sharded(g, cam)
     out_dir = Path(args.output)
     out_dir.mkdir(parents=True, exist_ok=True)
     frame_ms = []
     with torch.no_grad():
         for i, cam in enumerate(cams):
             t0 = time.perf_counter()
-            out = render(g, cam, settings)
+            out = render_view(cam)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             frame_ms.append((time.perf_counter() - t0) * 1e3)

@@ -9,8 +9,17 @@ and opacity-reset cadences and the progressive SH unlock, prints one JSON
 line per log interval, and ends with one JSON line holding the mean PSNR
 over the training views before and after.
 
+With --tile-shards N the step is the band-sharded one
+(parallel/sharded.make_sharded_train_step) over a mesh of N ranks, each
+owning a band of image rows; --ring makes the bands exchange depth-rank-range
+segments around the ring (parallel/ring.py).  The ranks are spread over the
+visible CUDA devices; on one card they all share it.  The image's tile rows
+must divide into N bands and, with --ring, the capacity into N ranges:
+python scripts/train_torch.py --tile-shards 5 --ring --capacity 131075.
+
 Usage: python scripts/train_torch.py [--iterations 200] [--size 800]
            [--n-gaussians 100000] [--capacity 131072] [--device cuda]
+           [--tile-shards 1] [--ring]
 """
 
 import argparse
@@ -28,6 +37,8 @@ from mini3dgs_tpu_torch import convert  # noqa: E402
 from mini3dgs_tpu_torch.config import TrainingConfig  # noqa: E402
 from mini3dgs_tpu_torch.core.gaussians import scene_extent_of  # noqa: E402
 from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render  # noqa: E402
+from mini3dgs_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from mini3dgs_tpu_torch.parallel.sharded import make_sharded_train_step  # noqa: E402
 from mini3dgs_tpu_torch.train import density, trainer  # noqa: E402
 from mini3dgs_tpu_torch.utils.metrics import psnr  # noqa: E402
 from mini3dgs_tpu_torch.utils.vis import turntable_cameras  # noqa: E402
@@ -77,6 +88,10 @@ def main(argv=None) -> int:
                        default=getattr(d, name))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--tile-shards", type=int, default=1,
+                   help="ranks of the mesh's tile axis (image bands)")
+    p.add_argument("--ring", action="store_true",
+                   help="ring exchange between the bands (parallel/ring.py)")
     args = p.parse_args(argv)
     if args.n_cameras < 1 or args.n_gaussians > args.capacity:
         p.error("need at least one camera and capacity >= n-gaussians")
@@ -99,7 +114,8 @@ def main(argv=None) -> int:
         densify_interval=args.densify_interval,
         prune_interval=args.prune_interval,
         opacity_reset_interval=args.opacity_reset_interval,
-        sh_increase_interval=args.sh_increase_interval)
+        sh_increase_interval=args.sh_increase_interval,
+        mesh_tile=args.tile_shards, ring_exchange=args.ring)
     settings = RenderSettings(
         image_height=config.image_height, image_width=config.image_width,
         bg_color=tuple(config.background_color), tile_size=config.tile_size,
@@ -113,6 +129,14 @@ def main(argv=None) -> int:
     scene_extent = float(scene_extent_of(gaussians))
     config = trainer.scale_position_lr(config, scene_extent)
     state = trainer.create_train_state(gaussians, config)
+    sharded_step = None
+    if config.mesh_tile > 1 or config.ring_exchange:
+        # On the CPU the ranks are CPU ranks; on CUDA they are spread over
+        # every visible card.
+        mesh = make_mesh(config.mesh_data, config.mesh_tile,
+                         devices=None if device.type == "cuda" else [device])
+        sharded_step = make_sharded_train_step(
+            config, settings.replace(ring=config.ring_exchange), mesh)
     psnr_start = mean_psnr(gaussians, cams, settings)
 
     rng = np.random.default_rng(args.seed)          # camera order
@@ -125,8 +149,13 @@ def main(argv=None) -> int:
         deg = config.sh_degree
         if config.sh_increase_interval > 0:
             deg = min(it // config.sh_increase_interval, config.sh_degree)
-        state, metrics = trainer.train_step(state, cams[cam_idx], config,
-                                            settings, cam_idx, sh_degree=deg)
+        if sharded_step is not None:
+            state, metrics = sharded_step(state, [cams[cam_idx]], [cam_idx],
+                                          sh_degree=deg)
+        else:
+            state, metrics = trainer.train_step(
+                state, cams[cam_idx], config, settings, cam_idx,
+                sh_degree=deg)
         events = {}
         if density.should_densify(it, config):
             noise = torch.randn(config.capacity, 3, generator=noise_gen,

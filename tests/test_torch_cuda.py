@@ -102,3 +102,100 @@ def test_kernel_pair_differentiates_a_stream_on_card(cuda):
     assert _normalised_row_error(leaf.grad, want) < 1e-3
     with pytest.raises(ValueError, match="tile sizes"):
         rc.raster_fwd(s, start, count, 4, 8)
+
+
+def _t0(T, P, device, seed=2):
+    """A seeded incoming transmittance [T, 1, P]: a tenth of the pixels and
+    the whole of tile 1 arrive closed (<= 0.005), tile 2 arrives at 1."""
+    rng = np.random.default_rng(seed)
+    t0 = rng.uniform(0.006, 1.0, (T, 1, P))
+    some = rng.random((T, 1, P)) < 0.1
+    t0[some] = rng.uniform(0.0, 0.005, int(some.sum()))
+    t0[1] = rng.uniform(0.0, 0.005, (1, P))
+    t0[2] = 1.0
+    return torch.as_tensor(t0, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("tile_size", rc.KERNEL_TILE_SIZES)
+def test_t0_kernels_match_plain_on_card(cuda, tile_size):
+    """The builds with t0 on a band (`tile0` > 0): accumulators and the
+    outgoing transmittance as the build without (max 5.5e-3 for an isolated
+    early-stop flip, mean 2e-5), the ten gradient rows and d_t0 within 1e-3
+    of the plain row's largest entry, two launches bitwise equal, a closed
+    tile untouched, and the launches counted under `launches_t0` only."""
+    stream, start, count = _stream(tile_size, 9, 7, cuda)
+    tile0, T = 2 * 9, 5 * 9
+    args = (stream, start[tile0:].contiguous(), count[tile0:].contiguous(), 9,
+            tile_size)
+    t0 = _t0(T, tile_size * tile_size, cuda)
+    before = (rc.raster_fwd.launches, rc.raster_bwd.launches,
+              rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+    acc = rc.raster_fwd(*args, t0=t0, tile0=tile0)
+    want = rc.raster_fwd_plain(*args, t0=t0, tile0=tile0)
+    torch.cuda.synchronize()
+    d = (acc - want).abs()
+    assert float(d.max()) < 5.5e-3 and float(d.mean()) < 2e-5
+    assert bool((acc[:, 6:] == 0).all()) and bool((acc[1, :5] == 0).all())
+    assert torch.equal(acc[1, 5:6], t0[1])
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gout = torch.zeros_like(acc)
+    gout[:, :6] = torch.randn(acc[:, :6].shape, generator=gen, device=cuda)
+    got, got_t0 = rc.raster_bwd(*args, acc, gout, t0=t0, tile0=tile0)
+    again, again_t0 = rc.raster_bwd(*args, acc, gout, t0=t0, tile0=tile0)
+    want, want_t0 = rc.raster_bwd_plain(*args, acc, gout, t0=t0, tile0=tile0)
+    torch.cuda.synchronize()
+    assert (rc.raster_fwd.launches, rc.raster_bwd.launches,
+            rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0) == (
+        before[0], before[1], before[2] + 1, before[3] + 2)
+    assert torch.equal(got, again) and torch.equal(got_t0, again_t0)
+    assert bool(torch.isfinite(got).all() & torch.isfinite(got_t0).all())
+    assert _normalised_row_error(got, want) < 1e-3
+    assert _normalised_row_error(got_t0.reshape(1, -1),
+                                 want_t0.reshape(1, -1)) < 1e-3
+    closed = slice(int(args[1][1]), int(args[1][1]) + int(args[2][1]))
+    assert bool((got[:, closed] == 0).all()) and closed.stop > closed.start
+
+
+def test_raster_op_with_t0_differentiates_on_card(cuda):
+    """`raster_op` with a t0 that requires grad launches both builds with t0
+    under `torch.autograd.grad`, and both gradients equal the plain
+    backward's."""
+    s, start, count = _stream(16, 4, 4, cuda)
+    leaf = s.clone().requires_grad_(True)
+    t0 = _t0(16, 256, cuda).requires_grad_(True)
+    fwd, bwd = rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0
+    acc = rc.raster_op(leaf, start, count, 4, 16, t0=t0)
+    weights = torch.linspace(0.5, 1.5, acc[:, :6].numel(),
+                             device=cuda).reshape(acc[:, :6].shape)
+    d_s, d_t0 = torch.autograd.grad((acc[:, :6] * weights).sum(), [leaf, t0])
+    assert (rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0) == (
+        fwd + 1, bwd + 1)
+    gout = torch.zeros_like(acc)
+    gout[:, :6] = weights
+    want, want_t0 = rc.raster_bwd_plain(s, start, count, 4, 16, acc.detach(),
+                                        gout, t0=t0.detach())
+    assert _normalised_row_error(d_s, want) < 1e-3
+    assert _normalised_row_error(d_t0.reshape(1, -1),
+                                 want_t0.reshape(1, -1)) < 1e-3
+
+
+def test_without_t0_the_unchanged_kernels_launch_on_card(cuda):
+    """`t0=None` launches the builds without t0 (counted under `launches`,
+    pad rows 5..7 zero), and a t0 of ones gives bit for bit their
+    accumulators and gradients."""
+    s, start, count = _stream(32, 5, 4, cuda)
+    args = (s, start, count, 5, 32)
+    before = (rc.raster_fwd.launches, rc.raster_bwd.launches,
+              rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+    acc = rc.raster_fwd(*args)
+    gout = torch.zeros_like(acc)
+    gout[:, :5] = 1.0
+    d = rc.raster_bwd(*args, acc, gout)
+    assert (rc.raster_fwd.launches, rc.raster_bwd.launches,
+            rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    assert bool((acc[:, 5:] == 0).all())
+    ones = torch.ones(20, 1, 1024, device=cuda)
+    acc1 = rc.raster_fwd(*args, t0=ones)
+    d1, _ = rc.raster_bwd(*args, acc1, gout, t0=ones)
+    assert torch.equal(acc1[:, :5], acc[:, :5]) and torch.equal(d1, d)

@@ -105,18 +105,27 @@ def test_raster_bwd_plain_matches_jax_vjp(tile_size):
     assert_rows_close(t2n(d_t), d_j, 1e-4, range(10))
 
 
-def _sequential_bwd(stream, tile_start, tile_count, tiles_x, ts, acc, gout):
+def _sequential_bwd(stream, tile_start, tile_count, tiles_x, ts, acc, gout,
+                    t0=None):
     """The backward kernel's loop, one pixel and one instance at a time in
-    float64 numpy, with the kernel's strict masks."""
+    float64 numpy, with the kernel's strict masks.  With `t0` [T, 1, P] the
+    transmittance starts there, <gout, acc> takes row 5 too, and the result
+    is (d, d_t0)."""
     s = stream.astype(np.float64)
     d = np.zeros_like(s)
     i = np.arange(ts * ts)
+    rows = 5 if t0 is None else 6
+    d_t0 = None if t0 is None else np.zeros(t0.shape)
     for t in range(len(tile_start)):
         px = ((t % tiles_x) * ts + i % ts).astype(np.float64)
         py = ((t // tiles_x) * ts + i // ts).astype(np.float64)
         g = gout[t, :5].astype(np.float64)
-        total = (g * acc[t, :5]).sum(0)
+        total = (gout[t, :rows].astype(np.float64) * acc[t, :rows]).sum(0)
         trans = np.ones(ts * ts)
+        if t0 is not None:
+            # the gates see the float32 value the kernel is handed
+            trans = t0[t, 0].astype(np.float64)
+            d_t0[t, 0] = total / np.maximum(trans, 1e-30)
         prefix = np.zeros(ts * ts)
         for j in range(tile_start[t], tile_start[t] + tile_count[t]):
             x, y, qa, qb, qc, op, r, gg, b, dep = s[:, j]
@@ -148,7 +157,7 @@ def _sequential_bwd(stream, tile_start, tile_count, tiles_x, ts, acc, gout):
             d[5, j] = (d_alpha * w).sum()
             d[6:10, j] = (g[:4] * wgt).sum(1)
             trans = trans * (1.0 - alpha)
-    return d
+    return d if t0 is None else (d, d_t0)
 
 
 @pytest.mark.parametrize("tile_size", [8, 16])
