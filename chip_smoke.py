@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
 
 It builds the CUDA raster kernels from mini3dgs_tpu_torch/csrc/ and holds
 each against its plain PyTorch version on the card (edge cases at tile 16
-and 32, a ragged image edge, and the golden rasterizer and its autograd on a
+and 32, a ragged image edge, the backward kernel's own staging and
+per-patch reject cases, and the golden rasterizer and its autograd on a
 small scene), checks that binning on the card equals binning on the CPU,
 renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
 `render`, runs the novel-view entry point, takes six full-width train
@@ -243,6 +244,102 @@ def edge_stream(tile_size, tiles_x, tiles_y, seed, device):
         to(counts, torch.int32)
 
 
+def patch_stream(tile_size, tiles_x, tiles_y, seed, device):
+    """Seeded instance stream with the backward kernel's own edge cases
+    (it stages 64 instances at a time and rejects an instance per patch of
+    8 x 4 or 8 x 8 pixels): slices of 0, 1, 64 and 65 instances; tile 4
+    holds splats centred on a pixel whose footprint w >= 1e-5 ends exactly k
+    pixels away, k = 1..12, so on a patch's edge for some patch; tile 5
+    starts with a splat that covers the whole tile; tile 6 with splats of
+    opacity 1 centred on a pixel (w == 1, op * w >= 1) and off it.  Returns
+    (stream, tile_start, tile_count)."""
+    rng = np.random.default_rng(seed)
+    n_tiles = tiles_x * tiles_y
+    counts = rng.integers(20, 200, n_tiles)
+    counts[:4] = [0, 1, 64, 65]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    n = int(counts.sum())
+    tile = np.repeat(np.arange(n_tiles), counts)
+    ox = (tile % tiles_x) * tile_size
+    oy = (tile // tiles_x) * tile_size
+    s = np.zeros((10, n), np.float32)
+    s[0] = ox + rng.uniform(-3, tile_size + 3, n)
+    s[1] = oy + rng.uniform(-3, tile_size + 3, n)
+    sig = rng.uniform(0.8, 0.3 * tile_size, (2, n))
+    rho = rng.uniform(-0.6, 0.6, n)
+    det = (1 - rho ** 2) * sig[0] ** 2 * sig[1] ** 2
+    s[2] = -0.5 * sig[1] ** 2 / det
+    s[3] = rho * sig[0] * sig[1] / det
+    s[4] = -0.5 * sig[0] ** 2 / det
+    s[5] = rng.uniform(0.02, 0.6, n)
+    s[6:9] = rng.random((3, n))
+    s[9] = rng.uniform(0.5, 6.0, n)
+
+    def put(t, k, x, y, q, op):
+        j = starts[t] + k
+        s[0, j], s[1, j] = ox[j] + x, oy[j] + y
+        s[2, j], s[3, j], s[4, j], s[5, j] = q, 0.0, q, op
+    for k in range(12):  # exp(q (k + 1)^2) == 1e-5
+        put(4, k, 3 + k % 8, 2 + k % 5, np.log(1e-5) / (k + 1) ** 2, 0.3)
+    put(5, 0, tile_size / 2, tile_size / 2, -1e-5, 0.5)
+    for k in range(6):
+        put(6, k, 5 + 3 * k + 0.5 * (k % 2), 4 + k, -0.02, 1.0)
+    to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return to(s, torch.float32), to(starts, torch.int32), \
+        to(counts, torch.int32)
+
+
+def patch_t0(tile_size, n_tiles, seed, device):
+    """An incoming transmittance [T, 1, P] for `patch_stream`: open
+    everywhere (0.3 to 1) except tile 7, where only the top right 16 x 16
+    pixels arrive open (at tile 16: the top right 8 x 8), and tile 8, which
+    arrives closed."""
+    rng = np.random.default_rng(seed)
+    t0 = rng.uniform(0.3, 1.0, (n_tiles, tile_size, tile_size))
+    half = tile_size // 2
+    keep = t0[7, :half, half:].copy()
+    t0[7] = rng.uniform(0.0, 0.005, (tile_size, tile_size))
+    t0[7, :half, half:] = keep
+    t0[8] = rng.uniform(0.0, 0.005, (tile_size, tile_size))
+    return torch.as_tensor(t0.reshape(n_tiles, 1, -1), dtype=torch.float32,
+                           device=device)
+
+
+def check_patch_cases(rc, ts: int, dev, with_t0: bool) -> float:
+    """The backward kernel on `patch_stream` (with `patch_t0` for the build
+    with t0) against its plain version: rows and d_t0 within `gate_rows`,
+    two launches bitwise equal, exact zeros for the instances of a tile that
+    arrives closed and none for the tile whose one open quadrant is left.
+    Returns the largest normalised error."""
+    tiles_x, tiles_y = 4, 3
+    stream, start, count = patch_stream(ts, tiles_x, tiles_y, 400 + ts, dev)
+    args = (stream, start, count, tiles_x, ts)
+    kw = dict(t0=patch_t0(ts, tiles_x * tiles_y, 500 + ts, dev)) \
+        if with_t0 else {}
+    acc = rc.raster_fwd(*args, **kw)
+    gout = seeded_gout(acc, 600 + ts, rows=6 if with_t0 else 5)
+    got = rc.raster_bwd(*args, acc, gout, **kw)
+    again = rc.raster_bwd(*args, acc, gout, **kw)
+    want = rc.raster_bwd_plain(*args, acc, gout, **kw)
+    torch.cuda.synchronize()
+    name = f"tile{ts} patch cases{' t0' if with_t0 else ''}"
+    cols = lambda t: slice(int(start[t]), int(start[t]) + int(count[t]))
+    if not with_t0:
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        return gate_rows(got, want, name)
+    (d_k, dt0_k), (d_a, dt0_a), (d_p, dt0_p) = got, again, want
+    if not (torch.equal(d_k, d_a) and torch.equal(dt0_k, dt0_a)):
+        raise AssertionError(f"{name}: two launches differ")
+    if bool((d_k[:, cols(8)] != 0).any()) or bool((d_p[:, cols(8)] != 0).any()):
+        raise AssertionError(f"{name}: a closed tile's rows are not 0")
+    if not bool((d_k[:, cols(7)] != 0).any()):
+        raise AssertionError(f"{name}: the open quadrant gave no gradient")
+    return max(gate_rows(d_k, d_p, name),
+               gate_rows(dt0_k.reshape(1, -1), dt0_p.reshape(1, -1),
+                         name + " d_t0"))
+
+
 def pair_counts(rc, stream, start, count, tiles_x, ts, t0=None,
                 tile0=0) -> dict:
     """Pixel x instance pairs of this stream by how far the raster functions
@@ -301,6 +398,56 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
+def ring_step_launches(rc, proj, target, n_rk: int, ts: int, size: int):
+    """The n_rk x n_rk raster launches of one ring step on the projected
+    scene `proj` of a size x size view at tile `ts`, as the step makes them:
+    the transmittance chained forward through each band's depth ranges and
+    the loss's own cotangent (towards `target`) chained backward.  Returns
+    dictionaries keyed by (band, range): `segs` (stream, tile_start,
+    tile_count), `t_in` the incoming transmittance, `acc_seg` the forward
+    accumulators, `g_in` their cotangent; and the cotangent `g_acc` of the
+    whole image's accumulators."""
+    from mini3dgs_tpu_torch.core.loss import gaussian_loss
+    from mini3dgs_tpu_torch.ops.binning import (bin_gaussians_ring_origin,
+                                                pack_instances)
+    dev = target.device
+    P, tiles_x = ts * ts, size // ts
+    ntb = (size // ts // n_rk) * tiles_x
+    segs = {}
+    for r in range(n_rk):
+        rb = bin_gaussians_ring_origin(proj, size, size, ts, r, n_rk)
+        packed = pack_instances(rc.instance_attrs(proj), rb)
+        for b in range(n_rk):
+            segs[b, r] = (
+                packed[:, rb.seg_start[b]:rb.seg_start[b + 1]].contiguous(),
+                rb.tile_start[b].contiguous(), rb.tile_count[b].contiguous())
+    t_in, acc_seg, bands = {}, {}, []
+    for b in range(n_rk):
+        trans = torch.ones(ntb, 1, P, device=dev)
+        total = torch.zeros(ntb, 5, P, device=dev)
+        for r in range(n_rk):
+            t_in[b, r] = trans
+            acc_seg[b, r] = rc.raster_fwd(*segs[b, r], tiles_x, ts, t0=trans,
+                                          tile0=b * ntb)
+            total = total + acc_seg[b, r][:, :5]
+            trans = acc_seg[b, r][:, 5:6].contiguous()
+        bands.append(torch.cat([total, torch.zeros(ntb, 3, P, device=dev)], 1))
+    acc_leaf = torch.cat(bands).requires_grad_(True)
+    image = rc.compose_image(acc_leaf, size, size, ts,
+                             torch.ones(3, device=dev))[0]
+    g_acc, = torch.autograd.grad(gaussian_loss(image, target)[0], acc_leaf)
+    g_in = {}
+    for b in range(n_rk):
+        g5 = torch.zeros(ntb, 1, P, device=dev)
+        for r in reversed(range(n_rk)):
+            g_in[b, r] = torch.cat(
+                [g_acc[b * ntb:(b + 1) * ntb, :5], g5,
+                 torch.zeros(ntb, 2, P, device=dev)], 1)
+            _, g5 = rc.raster_bwd(*segs[b, r], tiles_x, ts, acc_seg[b, r],
+                                  g_in[b, r], t0=t_in[b, r], tile0=b * ntb)
+    return segs, t_in, acc_seg, g_in, g_acc
+
+
 def load_script(name: str):
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -322,9 +469,7 @@ def main() -> int:
     from mini3dgs_tpu_torch.core.loss import gaussian_loss
     from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops import raster_ref
-    from mini3dgs_tpu_torch.ops.binning import (ROW_DEPTH, bin_gaussians,
-                                                bin_gaussians_ring_origin,
-                                                pack_instances)
+    from mini3dgs_tpu_torch.ops.binning import ROW_DEPTH, bin_gaussians
     from mini3dgs_tpu_torch.ops.projection import project_gaussians
     from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render
     from mini3dgs_tpu_torch.parallel.mesh import make_mesh
@@ -433,6 +578,8 @@ def main() -> int:
                 raise AssertionError("saturating tiles got no gradient")
             print(f"    tile{ts} edge: {behind.numel()} rows behind an early "
                   "exit exactly 0; two launches bitwise equal")
+    patch_err = max(check_patch_cases(rc, ts, dev, False)
+                    for ts in rc.KERNEL_TILE_SIZES)
     print(f"  launches in phase 3b: "
           f"{rc.raster_bwd.launches - launches_before}")
 
@@ -562,6 +709,8 @@ def main() -> int:
                                      "early exit are not exactly 0")
             msg += f", {behind.numel()} rows behind an early exit exactly 0"
         print(f"    tile{ts} {name}: {msg}; two launches bitwise equal")
+    patch_t0_err = max(check_patch_cases(rc, ts, dev, True)
+                       for ts in rc.KERNEL_TILE_SIZES)
 
     # ---- 4. binning on the card == binning on the CPU -----------------
     params, alive, cam = convert.flagship_scene_numpy(CAPACITY, N_GAUSSIANS,
@@ -758,7 +907,9 @@ def main() -> int:
                                     rc.raster_fwd_plain(*fargs), "train view"))
     t_fwd = cuda_ms(lambda: rc.raster_fwd(*fargs))
     t_fwd_plain = cuda_ms(lambda: rc.raster_fwd_plain(*fargs), reps=2)
-    t_bwd = cuda_ms(lambda: rc.raster_bwd(*bargs))
+    # As the step's backward calls it: the forward has held the ranges
+    # against the stream, so the launch does not wait for the host.
+    t_bwd = cuda_ms(lambda: rc.raster_bwd(*bargs, ranges_checked=True))
     t_bwd_plain = cuda_ms(lambda: rc.raster_bwd_plain(*bargs), reps=2)
     pairs = pair_counts(rc, *fargs)
     n_live, T, P = b.n_live, b.tile_start.shape[0], 32 * 32
@@ -996,40 +1147,9 @@ def main() -> int:
     proj = project_gaussians(r_state.gaussians, bench_cam, color_mode="sh",
                              sh_degree=3)
     P = 32 * 32
+    segs, t_in, acc_seg, g_in, g_acc = ring_step_launches(
+        rc, proj, target, n_rk, 32, VIEW_SIZE)
     ntb = (VIEW_SIZE // 32 // n_rk) * tiles_x
-    segs = {}
-    for r in range(n_rk):
-        rb = bin_gaussians_ring_origin(proj, VIEW_SIZE, VIEW_SIZE, 32, r,
-                                       n_rk)
-        packed = pack_instances(rc.instance_attrs(proj), rb)
-        for b in range(n_rk):
-            segs[b, r] = (
-                packed[:, rb.seg_start[b]:rb.seg_start[b + 1]].contiguous(),
-                rb.tile_start[b].contiguous(), rb.tile_count[b].contiguous())
-    t_in, acc_seg, bands = {}, {}, []
-    for b in range(n_rk):
-        trans = torch.ones(ntb, 1, P, device=dev)
-        total = torch.zeros(ntb, 5, P, device=dev)
-        for r in range(n_rk):
-            t_in[b, r] = trans
-            acc_seg[b, r] = rc.raster_fwd(*segs[b, r], tiles_x, 32, t0=trans,
-                                          tile0=b * ntb)
-            total = total + acc_seg[b, r][:, :5]
-            trans = acc_seg[b, r][:, 5:6].contiguous()
-        bands.append(torch.cat([total, torch.zeros(ntb, 3, P, device=dev)], 1))
-    acc_leaf = torch.cat(bands).requires_grad_(True)
-    image = rc.compose_image(acc_leaf, VIEW_SIZE, VIEW_SIZE, 32,
-                             torch.ones(3, device=dev))[0]
-    g_acc, = torch.autograd.grad(gaussian_loss(image, target)[0], acc_leaf)
-    g_in = {}
-    for b in range(n_rk):
-        g5 = torch.zeros(ntb, 1, P, device=dev)
-        for r in reversed(range(n_rk)):
-            g_in[b, r] = torch.cat(
-                [g_acc[b * ntb:(b + 1) * ntb, :5], g5,
-                 torch.zeros(ntb, 2, P, device=dev)], 1)
-            _, g5 = rc.raster_bwd(*segs[b, r], tiles_x, 32, acc_seg[b, r],
-                                  g_in[b, r], t0=t_in[b, r], tile0=b * ntb)
     g5_share = float(torch.stack([g_in[b, 0][:, 5].abs().max()
                                   for b in range(n_rk)]).max()
                      / g_acc[:, :5].abs().max())
@@ -1148,7 +1268,8 @@ def main() -> int:
         {"name": "raster_bwd", "route": "cuda",
          "source": "mini3dgs_tpu_torch/csrc/raster_bwd.cu",
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:377",
-         "launches": train_launches[1], "max_abs_err": bwd_err,
+         "launches": train_launches[1],
+         "max_abs_err": max(bwd_err, patch_err),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},
         # The two builds with t0: times, plain times and bounds are sums
@@ -1168,7 +1289,8 @@ def main() -> int:
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:382",
          "launches": ring_train_launches[3],
          "launches_per_step": per_step,
-         "max_abs_err": max(dt0_err, t4["err"]), "ms": t4["ms"],
+         "max_abs_err": max(dt0_err, patch_t0_err, t4["err"]),
+         "ms": t4["ms"],
          "ms_slowest_launch": t4["worst"], "plain_ms": t4["plain"],
          "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None}],
         "ring": {"ranks": n_rk, "render_ms": ring_ms, "step_ms": r_ms,

@@ -41,6 +41,16 @@ from .raster_ref import EARLY_STOP_A, W_EPS
 
 N_ACC = 8  # accumulator rows: r, g, b, depth, alpha, 3 zero rows
 KERNEL_TILE_SIZES = (16, 32)
+# A block of the backward kernel covers a sub-tile 16 pixels wide and 16
+# `pix` high, `pix` pixels a thread: the tile at tile 16; at tile 32 one of
+# four quadrants (pix = 1) or of two halves (pix = 2), as the launch chooses.
+BWD_SUB_TILE = 16
+# The backward kernel's rule for rejecting an instance for a whole warp
+# (csrc/raster_bwd.cu holds the same two numbers): a patch of pixels is
+# missed if the least value of -lw over it, lowered by REJECT_GUARD of the
+# sum of its terms' sizes, lies above REJECT_L > -ln(1e-5).
+REJECT_L = 11.6
+REJECT_GUARD = 1e-4
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -149,7 +159,8 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                      tile_count: torch.Tensor, tiles_x: int, tile_size: int,
                      acc: torch.Tensor, gout: torch.Tensor,
                      t0: Optional[torch.Tensor] = None, tile0: int = 0,
-                     chunk: int = 64):
+                     chunk: int = 64,
+                     pixels: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the backward kernel, written by hand with
     the kernel's masks (not derived by autograd: `torch.clamp` gives the
     whole gradient at an exact tie op*w == 1 or w == 1, the kernel none).
@@ -166,10 +177,21 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
     takes row 5 (the outgoing transmittance and its cotangent: both are
     linear in t0, and what lies behind j is proportional to 1 - alpha_j),
     and the result is (d_stream, d_t0) with d_t0 = <gout, acc> /
-    max(t0, 1e-30) of t0's shape."""
+    max(t0, 1e-30) of t0's shape.
+
+    `pixels` (indices into a tile's P pixels) restricts every tile to those
+    pixels: the sums then run over them only, and d_t0 has their number as
+    its last dimension.  The kernel's blocks at tile 32 each compute such a
+    partial sum, over `sub_tile_pixels`."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
     dev = stream.device
+    px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
+    if pixels is not None:
+        px, py, acc, gout = (px[:, pixels], py[:, pixels], acc[:, :, pixels],
+                             gout[:, :, pixels])
+        t0 = None if t0 is None else t0[:, :, pixels]
+        P = pixels.numel()
     d_stream = torch.zeros_like(stream)
     if t0 is None:
         total = (gout[:, :5] * acc[:, :5]).sum(1)[:, :, None]   # [T, P, 1]
@@ -182,7 +204,6 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                   .reshape(t0.shape))
     if T == 0 or stream.shape[1] == 0:
         return result
-    px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
     start = tile_start.long()[:, None]
     count = tile_count.long()[:, None]
     g_r, g_g, g_b, g_d, g_a = (gout[:, k, :, None] for k in range(5))
@@ -216,6 +237,56 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
         trans = m["trans"]
         prefix = incl[..., -1:]
     return result
+
+
+def sub_tile_pixels(tile_size: int, pix: int, q: int,
+                    device=None) -> torch.Tensor:
+    """Indices, into a tile's tile_size^2 pixels, of the pixels of the
+    sub-tile that block `q` of a tile of the backward kernel works on at
+    `pix` pixels a thread: BWD_SUB_TILE wide and BWD_SUB_TILE * pix high,
+    sub-tile column q % n and row q // n of n = tile_size / BWD_SUB_TILE."""
+    n = tile_size // BWD_SUB_TILE
+    rows = (q // n) * BWD_SUB_TILE * pix \
+        + torch.arange(BWD_SUB_TILE * pix, device=device)
+    cols = (q % n) * BWD_SUB_TILE + torch.arange(BWD_SUB_TILE, device=device)
+    return (rows[:, None] * tile_size + cols[None, :]).reshape(-1)
+
+
+def patch_missed(stream: torch.Tensor, x0, y0, w: int, h: int) -> torch.Tensor:
+    """[n] bool: whether the footprint {w >= 1e-5} of each instance of
+    `stream` surely misses the patch of pixels [x0, x0 + w - 1] x [y0, y0 +
+    h - 1] (`x0`, `y0` numbers or [n] tensors), so that a warp that owns the
+    patch may skip the instance without computing a pixel.  The backward
+    kernel's rule in plain PyTorch, in float32: with A = -qa, B = -qb,
+    C = -qc the form Q = -lw = A dx^2 + B dx dy + C dy^2 is convex, so
+    unless the centre lies inside the patch its least value over the patch
+    is taken on one of the four edges, on each at the stationary point
+    clamped to the edge.  Each value is lowered by REJECT_GUARD of the sum
+    of its terms' sizes (rounding, here and in the kernel's own lw) and
+    held against REJECT_L.  Never true for a conic that is not positive
+    definite or for non-finite values."""
+    x, y = stream[B.ROW_X], stream[B.ROW_Y]
+    A, Bq, C = -stream[B.ROW_QA], -stream[B.ROW_QB], -stream[B.ROW_QC]
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=stream.device)
+    y0 = torch.as_tensor(y0, dtype=torch.float32, device=stream.device)
+    dx0, dx1 = x0 - x, x0 + (w - 1.0) - x
+    dy0, dy1 = y0 - y, y0 + (h - 1.0) - y
+    ky, kx = -0.5 * Bq / C, -0.5 * Bq / A
+    ok = (A > 0) & (C > 0) & (4.0 * A * C - Bq * Bq > 0)
+    for v in (A, Bq, C, x, y, ky, kx):
+        ok = ok & torch.isfinite(v)
+    inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+    missed = ok & ~inside
+    for X, Y in ((dx0, dy0), (dx1, dy1)):
+        v = torch.minimum(torch.maximum(ky * X, dy0), dy1)
+        q = A * X * X + Bq * X * v + C * v * v
+        m = A * X * X + (Bq * X * v).abs() + C * v * v
+        missed = missed & (q - REJECT_GUARD * m > REJECT_L)
+        u = torch.minimum(torch.maximum(kx * Y, dx0), dx1)
+        q = A * u * u + Bq * u * Y + C * Y * Y
+        m = A * u * u + (Bq * u * Y).abs() + C * Y * Y
+        missed = missed & (q - REJECT_GUARD * m > REJECT_L)
+    return missed
 
 
 class KernelLibrary(NamedTuple):
@@ -291,10 +362,13 @@ def kernel_library() -> KernelLibrary:
     head = [ptr, ctypes.c_longlong, ptr, ptr, i32, i32, i32, i32]
     lib.raster_fwd_launch.argtypes = head + [ptr, ptr]
     lib.raster_fwd_t0_launch.argtypes = head + [ptr, ptr, ptr]
-    lib.raster_bwd_launch.argtypes = head + [ptr, ptr, ptr, ptr]
-    lib.raster_bwd_t0_launch.argtypes = head + [ptr, ptr, ptr, ptr, ptr, ptr]
+    # (..., oraw, gout, [t0,] d_inst, [dt0,] part_g, sync, stream)
+    lib.raster_bwd_launch.argtypes = head + [ptr] * 6
+    lib.raster_bwd_t0_launch.argtypes = head + [ptr] * 8
+    lib.raster_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
     for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
-               lib.raster_bwd_launch, lib.raster_bwd_t0_launch):
+               lib.raster_bwd_launch, lib.raster_bwd_t0_launch,
+               lib.raster_bwd_blocks_per_sm):
         fn.restype = i32
     return KernelLibrary(lib, path, seconds, log)
 
@@ -421,7 +495,10 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
     cotangent `gout` [T, 8, P] of the forward accumulators `acc`; with
     `t0` the pair (d_stream, d_t0).  CPU tensors take `raster_bwd_plain`;
     CUDA tensors launch the kernel (and count the launch in
-    `raster_bwd.launches`, or `raster_bwd.launches_t0`) or raise."""
+    `raster_bwd.launches`, or `raster_bwd.launches_t0`) or raise.  At tile
+    32 the kernel runs two or four blocks a tile and adds their partial
+    rows itself, in a fixed order, through a scratch buffer of four times
+    the stream's size."""
     device = _check_raster_args("raster_bwd", stream, tile_start, tile_count,
                                 tiles_x, tile_size, acc, gout, t0=t0,
                                 tile0=tile0, ranges_checked=ranges_checked)
@@ -434,20 +511,32 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
     # Zero-filled: the kernel leaves the rows behind a tile's early exit,
     # and any column no tile range covers, unwritten.
     d_stream = torch.zeros_like(stream)
+    T = tile_start.shape[0]
+    quads = (tile_size // BWD_SUB_TILE) ** 2
+    scratch = (None, None)
+    if quads > 1:
+        # Up to `quads` blocks work on one tile, each on a sub-tile: room
+        # for their partial rows (every element read is one the kernel
+        # wrote) and, zero-filled, a tile's count of finished blocks with
+        # room for how far each got.
+        scratch = (torch.empty(quads, *stream.shape, dtype=torch.float32,
+                               device=device),
+                   torch.zeros((1 + quads) * T, dtype=torch.int32,
+                               device=device))
+    tail = (*(None if v is None else v.data_ptr() for v in scratch),
+            torch.cuda.current_stream(device).cuda_stream)
     head = (stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
-            tile_count.data_ptr(), tile_start.shape[0], tiles_x, tile_size,
-            tile0, acc.data_ptr(), gout.data_ptr())
-    cuda_stream = torch.cuda.current_stream(device).cuda_stream
+            tile_count.data_ptr(), T, tiles_x, tile_size, tile0,
+            acc.data_ptr(), gout.data_ptr())
     with torch.cuda.device(device):
         if t0 is None:
-            rc = lib.raster_bwd_launch(*head, d_stream.data_ptr(),
-                                       cuda_stream)
+            rc = lib.raster_bwd_launch(*head, d_stream.data_ptr(), *tail)
         else:
             t0 = t0.contiguous()
             d_t0 = torch.empty_like(t0)  # the kernel writes every element
             rc = lib.raster_bwd_t0_launch(*head, t0.data_ptr(),
                                           d_stream.data_ptr(),
-                                          d_t0.data_ptr(), cuda_stream)
+                                          d_t0.data_ptr(), *tail)
     if rc != 0:
         raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {rc}")
     if t0 is None:

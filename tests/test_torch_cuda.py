@@ -199,3 +199,21 @@ def test_without_t0_the_unchanged_kernels_launch_on_card(cuda):
     acc1 = rc.raster_fwd(*args, t0=ones)
     d1, _ = rc.raster_bwd(*args, acc1, gout, t0=ones)
     assert torch.equal(acc1[:, :5], acc[:, :5]) and torch.equal(d1, d)
+
+
+@pytest.mark.parametrize("with_t0", [False, True])
+@pytest.mark.parametrize("tile_size", rc.KERNEL_TILE_SIZES)
+def test_backward_kernel_patch_cases_on_card(cuda, tile_size, with_t0):
+    """The streams of `chip_smoke.patch_stream`, made for the backward
+    kernel's staging and its per-patch reject: slices of 0, 1, 64 and 65
+    instances, footprints that end exactly on a patch's edge, a splat that
+    covers the whole tile, w == 1 with op * w >= 1 and, with t0, a tile
+    with three quadrants closed and one open and a tile that arrives closed.
+    Rows and d_t0 against the plain version within chip_smoke.py's
+    `gate_rows`, two launches bitwise equal, exact zeros for the closed
+    tile."""
+    import chip_smoke
+    before = (rc.raster_bwd.launches, rc.raster_bwd.launches_t0)
+    chip_smoke.check_patch_cases(rc, tile_size, cuda, with_t0)
+    assert (rc.raster_bwd.launches, rc.raster_bwd.launches_t0) == (
+        before[0] + 2 * (not with_t0), before[1] + 2 * with_t0)
