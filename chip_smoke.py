@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc:
 
 It builds the CUDA raster kernels from mini3dgs_tpu_torch/csrc/ and holds
 each against its plain PyTorch version on the card (edge cases at tile 16
-and 32, a ragged image edge, the backward kernel's own staging and
-per-patch reject cases, and the golden rasterizer and its autograd on a
-small scene), checks that binning on the card equals binning on the CPU,
+and 32, a ragged image edge, the kernels' own staging and per-patch reject
+cases at both launch shapes, and the golden rasterizer and its autograd on
+a small scene), checks that binning on the card equals binning on the CPU,
 renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
 `render`, runs the novel-view entry point, takes six full-width train
 steps (then one densify and one prune step) on that scene, and runs the
@@ -245,9 +245,10 @@ def edge_stream(tile_size, tiles_x, tiles_y, seed, device):
 
 
 def patch_stream(tile_size, tiles_x, tiles_y, seed, device):
-    """Seeded instance stream with the backward kernel's own edge cases
-    (it stages 64 instances at a time and rejects an instance per patch of
-    8 x 4 or 8 x 8 pixels): slices of 0, 1, 64 and 65 instances; tile 4
+    """Seeded instance stream with the kernels' own edge cases (they stage
+    64 instances at a time and reject an instance per patch of 8 x 4 or
+    8 x 8 pixels): slices of 0, 1, 64 and 65 instances in tiles 0-3 and of
+    63 and 257 in tiles 9 and 10; tile 4
     holds splats centred on a pixel whose footprint w >= 1e-5 ends exactly k
     pixels away, k = 1..12, so on a patch's edge for some patch; tile 5
     starts with a splat that covers the whole tile; tile 6 with splats of
@@ -257,6 +258,7 @@ def patch_stream(tile_size, tiles_x, tiles_y, seed, device):
     n_tiles = tiles_x * tiles_y
     counts = rng.integers(20, 200, n_tiles)
     counts[:4] = [0, 1, 64, 65]
+    counts[9:11] = [63, 257]
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     n = int(counts.sum())
     tile = np.repeat(np.arange(n_tiles), counts)
@@ -338,6 +340,42 @@ def check_patch_cases(rc, ts: int, dev, with_t0: bool) -> float:
     return max(gate_rows(d_k, d_p, name),
                gate_rows(dt0_k.reshape(1, -1), dt0_p.reshape(1, -1),
                          name + " d_t0"))
+
+
+def patch_tile_rows(dev) -> tuple:
+    """Tile rows of 4 tiles for the patch streams' two launch shapes: 3
+    (12 tiles, fewer than the card has SMs) and enough for more tiles than
+    it has SMs (at tile 32 the backward kernel takes other blocks above
+    that, and the forward's blocks no longer all fit at once)."""
+    return 3, torch.cuda.get_device_properties(dev).multi_processor_count \
+        // 4 + 1
+
+
+def check_fwd_patch_cases(rc, ts: int, dev, with_t0: bool,
+                          tiles_y: int = 3) -> float:
+    """The forward kernel on `patch_stream` of 4 x `tiles_y` tiles (with
+    `patch_t0` for the build with t0) against its plain version within
+    `gate_acc`, two launches bitwise equal; with t0, tile 8 arrives closed
+    and must add exactly nothing and hand t0 on, and tile 7, with one open
+    quadrant, must move.  Returns the largest |difference|."""
+    tiles_x = 4
+    stream, start, count = patch_stream(ts, tiles_x, tiles_y, 400 + ts, dev)
+    args = (stream, start, count, tiles_x, ts)
+    t0 = patch_t0(ts, tiles_x * tiles_y, 500 + ts, dev) if with_t0 else None
+    got = rc.raster_fwd(*args, t0=t0)
+    again = rc.raster_fwd(*args, t0=t0)
+    want = rc.raster_fwd_plain(*args, t0=t0)
+    torch.cuda.synchronize()
+    name = (f"tile{ts} {tiles_x * tiles_y} tiles patch cases"
+            f"{' t0' if with_t0 else ''}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    if with_t0 and (bool((got[8, :5] != 0).any())
+                    or not torch.equal(got[8, 5:6], t0[8])):
+        raise AssertionError(f"{name}: a closed tile moved")
+    if with_t0 and not bool((got[7, 4] != 0).any()):
+        raise AssertionError(f"{name}: the open quadrant did not move")
+    return gate_acc(got, want, name, has_t0=with_t0)
 
 
 def pair_counts(rc, stream, start, count, tiles_x, ts, t0=None,
@@ -501,6 +539,13 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
             print(f"    ptxas: {line.strip()}")
+    fwd = lib.lib.raster_fwd_blocks_per_sm
+    bwd = lib.lib.raster_bwd_blocks_per_sm
+    print("    blocks an SM, without and with t0: raster_fwd tile 16 "
+          f"{fwd(16, 0)} {fwd(16, 1)}, tile 32 {fwd(32, 0)} {fwd(32, 1)}; "
+          f"raster_bwd tile 16 {bwd(16, 1, 0)} {bwd(16, 1, 1)}, tile 32 at "
+          f"one pixel a thread {bwd(32, 1, 0)} {bwd(32, 1, 1)}, at two "
+          f"{bwd(32, 2, 0)} {bwd(32, 2, 1)}")
 
     # ---- 3. forward kernel vs plain on the card -----------------------
     print("[3 forward kernel vs plain]", flush=True)
@@ -542,6 +587,9 @@ def main() -> int:
         gate(out_k["image"], out_g["image"], f"tile{ts} vs golden image")
         gate(out_k["alpha"], out_g["alpha"], f"tile{ts} vs golden alpha")
         ragged[ts] = (stream, b.tile_start, b.tile_count, tiles_x, ts, acc_k)
+    fwd_patch_err = max(check_fwd_patch_cases(rc, ts, dev, False, rows)
+                        for ts in rc.KERNEL_TILE_SIZES
+                        for rows in patch_tile_rows(dev))
     print(f"  launches in phase 3: {rc.raster_fwd.launches - launches_before}")
 
     # ---- 3b. backward kernel vs plain on the card ---------------------
@@ -644,6 +692,9 @@ def main() -> int:
             print(f"    tile{ts} {name}: {closed.numel()} closed tiles exactly "
                   f"0, t0 == 1 bitwise equal to raster_fwd on rows 0..4")
             t0_cases[name, ts] = (args, t0, closed, acc_k)
+    t0_err = max([t0_err] + [check_fwd_patch_cases(rc, ts, dev, True, rows)
+                             for ts in rc.KERNEL_TILE_SIZES
+                             for rows in patch_tile_rows(dev)])
 
     # ---- 3e. the chain: 4 ranges with the transmittance carried --------
     print("[3e chain of 4 ranges vs one pass]", flush=True)
@@ -771,9 +822,13 @@ def main() -> int:
         b, stream = rc.tile_stream(proj, VIEW_SIZE, VIEW_SIZE, 32)
         args = (stream, b.tile_start, b.tile_count, tiles_x, 32)
         acc_k, acc_p = rc.raster_fwd(*args), rc.raster_fwd_plain(*args)
-        print(f"  view {i}: n_live {b.n_live}")
+        print(f"  view {i}: n_live {b.n_live}, heaviest tile "
+              f"{int(b.tile_count.max())} instances against a mean of "
+              f"{float(b.tile_count.float().mean()):.1f}")
         fwd_err = max(fwd_err, gate_acc(acc_k, acc_p, f"view{i}"))
-        fwd_ms.append(cuda_ms(lambda: rc.raster_fwd(*args)))
+        fwd_ms.append(cuda_ms(lambda: rc.raster_fwd(*args,
+                                                    ranges_checked=True),
+                              inner=4))
         fwd_plain_ms.append(cuda_ms(lambda: rc.raster_fwd_plain(*args)))
         with torch.no_grad():
             plain_img = rc.rasterize_tiles(proj, VIEW_SIZE, VIEW_SIZE,
@@ -905,7 +960,10 @@ def main() -> int:
     bwd_err = gate_rows(d_k, d_p, "train view")
     fwd_err = max(fwd_err, gate_acc(acc_leaf.detach(),
                                     rc.raster_fwd_plain(*fargs), "train view"))
-    t_fwd = cuda_ms(lambda: rc.raster_fwd(*fargs))
+    # Without the wrapper's range check, a host wait (as B2 below and the
+    # launches of phase 11b); 4 launches a timing.
+    t_fwd = cuda_ms(lambda: rc.raster_fwd(*fargs, ranges_checked=True),
+                    inner=4)
     t_fwd_plain = cuda_ms(lambda: rc.raster_fwd_plain(*fargs), reps=2)
     # As the step's backward calls it: the forward has held the ranges
     # against the stream, so the launch does not wait for the host.
@@ -914,7 +972,10 @@ def main() -> int:
     pairs = pair_counts(rc, *fargs)
     n_live, T, P = b.n_live, b.tile_start.shape[0], 32 * 32
     fwd_bound, bwd_bound = raster_bounds(pairs, n_live, T, P, has_t0=False)
-    print(f"  train view: n_live {n_live}, n_live x P {n_live * P}, pairs "
+    print(f"  train view: n_live {n_live}, heaviest tile "
+          f"{int(b.tile_count.max())} instances against a mean of "
+          f"{float(b.tile_count.float().mean()):.1f}, n_live x P "
+          f"{n_live * P}, pairs "
           f"with the gate open {pairs['open']}, of those w >= 1e-5 "
           f"{pairs['live']}, of those 0 < op*w < 1 {pairs['alpha']}, of "
           f"those w < 1 {pairs['geom']}\n"
@@ -1155,12 +1216,13 @@ def main() -> int:
                      / g_acc[:, :5].abs().max())
     t3 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=0.0, worst=0.0)
     t4 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=0.0, worst=0.0)
-    d_kernel, d_plain = [], []
+    d_kernel, d_plain, heaviest = [], [], {}
     for (b, r), seg in segs.items():
         fargs = (*seg, tiles_x, 32)
         kw = dict(t0=t_in[b, r], tile0=b * ntb)
         bargs = (*fargs, acc_seg[b, r], g_in[b, r])
         n_seg = seg[0].shape[1]
+        heaviest[b, r] = (int(seg[2].max()), float(seg[2].float().mean()))
         if n_seg:
             name = f"band{b} range{r}"
             t3["err"] = max(t3["err"], gate_acc(
@@ -1208,7 +1270,12 @@ def main() -> int:
           f"{t3['bound']:.4f} by {t3['by']})\n"
           f"  raster_bwd_t0 sum {t4['ms']:.3f} ms, slowest launch "
           f"{t4['worst']:.3f} (plain sum {t4['plain']:.1f}, bound sum "
-          f"{t4['bound']:.4f} by {t4['by']})", flush=True)
+          f"{t4['bound']:.4f} by {t4['by']})\n"
+          f"  heaviest tile / mean instances a tile, per launch:", flush=True)
+    for b in range(n_rk):
+        print(f"    band {b}: " + "  ".join(
+            f"range {r} {heaviest[b, r][0]}/{heaviest[b, r][1]:.1f}"
+            for r in range(n_rk)))
 
     # ---- 12. the entry points with --tile-shards 5 --ring --------------
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -1262,7 +1329,7 @@ def main() -> int:
          "source": "mini3dgs_tpu_torch/csrc/raster_fwd.cu",
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:288",
          "launches": train_launches[0], "launches_render": render_launches,
-         "max_abs_err": fwd_err,
+         "max_abs_err": max(fwd_err, fwd_patch_err),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "raster_bwd", "route": "cuda",

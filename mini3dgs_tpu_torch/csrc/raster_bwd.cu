@@ -68,7 +68,8 @@
 //   touches few warps of a block.
 // - Reject per warp before any lane computes.  After a chunk is staged,
 //   every thread tests one instance against two of the block's eight
-//   patches (`patch_missed`): the least value over the patch of the convex
+//   patches (`patch_missed` in raster_common.cuh, which raster_fwd.cu
+//   shares): the least value over the patch of the convex
 //   form Q = -lw, found on the patch's edges, against L = 11.6 >
 //   -ln(1e-5) = 11.513, with a guard against rounding.  A warp ballots the
 //   64 results for its patch into two words and walks the set bits only: a
@@ -127,69 +128,13 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
+
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSubW = 16;     // a block's sub-tile is kSubW x 16 kPix pixels:
-constexpr int kPatchesX = 2;  // 2 x 4 patches, one a warp, of
-constexpr int kPatchW = 8;    // kPatchW x 4 kPix pixels; a lane's kPix pixels
-constexpr int kLaneRows = 4;  // lie kLaneRows rows apart
-constexpr int kChunk = 64;    // two ballot words a warp
-constexpr int kRows = 10;
-constexpr int kInstStride = 12;  // floats a staged instance: three float4
 constexpr int kPartStride = 11;  // odd: no bank conflict across j or rows
-constexpr int kAcc = 8;
-constexpr float kWEps = 1e-5f;
-constexpr float kEarlyStopA = 0.995f;
-constexpr unsigned kFullMask = 0xffffffffu;
-// The reject rule; ops/raster_cuda.py holds the same two numbers.
-constexpr float kRejectL = 11.6f;
-constexpr float kRejectGuard = 1e-4f;
-
-// Whether the footprint {w >= 1e-5} of the staged instance `s` surely
-// misses the patch of pixels [x0, x0 + w - 1] x [y0, y0 + h - 1]: the least
-// of Q = -lw = A dx^2 + B dx dy + C dy^2 over the patch lies above kRejectL.
-// Q is convex, so unless the centre lies inside the patch its least value is
-// taken on one of the four edges, on each at the clamped stationary point.
-// Each value is lowered by kRejectGuard of the sum of its terms' sizes,
-// against rounding here and in the kernel's own lw.  Never true for a
-// conic that is not positive definite or for non-finite values.
-__device__ __forceinline__ bool patch_missed(const float* s, float x0,
-                                             float y0, float w, float h) {
-  const float x = s[0], y = s[1];
-  const float A = -s[2], B = -s[3], C = -s[4];
-  const float dx0 = x0 - x, dx1 = x0 + (w - 1.0f) - x;
-  const float dy0 = y0 - y, dy1 = y0 + (h - 1.0f) - y;
-  const bool ok = A > 0.0f && C > 0.0f && A < CUDART_INF_F &&
-                  C < CUDART_INF_F && fabsf(B) < CUDART_INF_F &&
-                  4.0f * A * C - B * B > 0.0f && fabsf(x) < CUDART_INF_F &&
-                  fabsf(y) < CUDART_INF_F;
-  const bool inside =
-      dx0 <= 0.0f && dx1 >= 0.0f && dy0 <= 0.0f && dy1 >= 0.0f;
-  const float ky = -0.5f * B / C, kx = -0.5f * B / A;
-  if (!ok || inside || !(fabsf(ky) < CUDART_INF_F) ||
-      !(fabsf(kx) < CUDART_INF_F))
-    return false;
-  bool missed = true;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const float X = e ? dx1 : dx0;
-    const float v = fminf(fmaxf(ky * X, dy0), dy1);
-    const float q = A * X * X + B * X * v + C * v * v;
-    const float m = A * X * X + fabsf(B * X * v) + C * v * v;
-    missed = missed && (q - kRejectGuard * m > kRejectL);
-    const float Y = e ? dy1 : dy0;
-    const float u = fminf(fmaxf(kx * Y, dx0), dx1);
-    const float q2 = A * u * u + B * u * Y + C * Y * Y;
-    const float m2 = A * u * u + fabsf(B * u * Y) + C * Y * Y;
-    missed = missed && (q2 - kRejectGuard * m2 > kRejectL);
-  }
-  return missed;
-}
 
 // Sum of each of the ten rows d[0..9] over the warp's 32 lanes, by a
 // transposed butterfly: returns, on lane l, the sum of row

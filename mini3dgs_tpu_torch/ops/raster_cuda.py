@@ -41,12 +41,17 @@ from .raster_ref import EARLY_STOP_A, W_EPS
 
 N_ACC = 8  # accumulator rows: r, g, b, depth, alpha, 3 zero rows
 KERNEL_TILE_SIZES = (16, 32)
-# A block of the backward kernel covers a sub-tile 16 pixels wide and 16
-# `pix` high, `pix` pixels a thread: the tile at tile 16; at tile 32 one of
-# four quadrants (pix = 1) or of two halves (pix = 2), as the launch chooses.
-BWD_SUB_TILE = 16
-# The backward kernel's rule for rejecting an instance for a whole warp
-# (csrc/raster_bwd.cu holds the same two numbers): a patch of pixels is
+# A block of either kernel covers a sub-tile SUB_TILE pixels wide and
+# SUB_TILE * `pix` high, `pix` pixels a thread: the tile at tile 16; at tile
+# 32 one of four quadrants (pix = 1, the forward always) or of two halves
+# (pix = 2, which the backward's launch may choose).  Each of its 8 warps
+# owns a patch PATCH_W wide and LANE_ROWS * pix high
+# (csrc/raster_common.cuh).
+SUB_TILE = 16
+PATCH_W = 8
+LANE_ROWS = 4
+# The kernels' rule for rejecting an instance for a whole warp
+# (csrc/raster_common.cuh holds the same two numbers): a patch of pixels is
 # missed if the least value of -lw over it, lowered by REJECT_GUARD of the
 # sum of its terms' sizes, lies above REJECT_L > -ln(1e-5).
 REJECT_L = 11.6
@@ -82,13 +87,16 @@ def _pixel_coords(num_tiles, tiles_x, tile_size, device, tile0=0):
     return px.float(), py.float()
 
 
-def _slice_terms(stream, start, count, px, py, trans, base, lanes):
+def _slice_terms(stream, start, count, px, py, trans, base, lanes,
+                 missed=None):
     """The per-pixel terms of one slice of every tile's instance list,
     instances base .. base + len(lanes) of each tile: [T, P, G] tensors (and
     `valid` [T, G], `idx` [T, G] stream columns, `row(r)` [T, 1, G]), with
     the transmittance as a cumulative product within the slice, seeded by
     the carried `trans` [T, P].  The `trans` handed on is the kernels': a
-    pixel's transmittance stops falling once its gate has closed."""
+    pixel's transmittance stops falling once its gate has closed.  `missed`
+    [T, P, G] (bool) forces alpha to 0 where it is true: a model of a kernel
+    that never computes those pairs."""
     j = base + lanes
     valid = j < count                                       # [T, G]
     idx = (start + j).clamp(max=stream.shape[1] - 1)
@@ -101,6 +109,8 @@ def _slice_terms(stream, start, count, px, py, trans, base, lanes):
     w = torch.clamp(torch.exp(lw), max=1.0)
     a_raw = row(B.ROW_OP) * w
     live = (w >= W_EPS) & valid[:, None, :]
+    if missed is not None:
+        live = live & ~missed
     alpha = torch.where(live, torch.clamp(a_raw, max=1.0),
                         torch.zeros_like(w))
     cp = torch.cumprod(1.0 - alpha, dim=-1)
@@ -118,14 +128,25 @@ def _slice_terms(stream, start, count, px, py, trans, base, lanes):
 def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                      tile_count: torch.Tensor, tiles_x: int, tile_size: int,
                      t0: Optional[torch.Tensor] = None, tile0: int = 0,
-                     chunk: int = 64) -> torch.Tensor:
+                     chunk: int = 64,
+                     pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: all tiles at once, one
     `chunk`-wide slice of every tile's instance list per step.  Returns
     [T, 8, P] float32; with `t0` [T, 1, P] the transmittance starts there
-    and row 5 holds what it ends with."""
+    and row 5 holds what it ends with.
+
+    `pixels` (indices into a tile's P pixels) restricts every tile to those
+    pixels (`t0` stays the whole tile's): the result then has their number
+    as its last dimension.  A pixel's value does not depend on which others
+    are computed beside it; the kernel's blocks each compute a sub-tile's
+    (`sub_tile_pixels`)."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
     dev = stream.device
+    px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
+    if pixels is not None:
+        px, py, P = px[:, pixels], py[:, pixels], pixels.numel()
+        t0 = None if t0 is None else t0[:, :, pixels]
     out = torch.zeros(T, N_ACC, P, dtype=torch.float32, device=dev)
     if t0 is None:
         trans = torch.ones(T, P, dtype=torch.float32, device=dev)
@@ -134,7 +155,6 @@ def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
         out[:, 5] = trans
     if T == 0 or stream.shape[1] == 0:
         return out
-    px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
     start = tile_start.long()[:, None]
     count = tile_count.long()[:, None]
     acc = [torch.zeros(T, P, dtype=torch.float32, device=dev)
@@ -242,22 +262,38 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
 def sub_tile_pixels(tile_size: int, pix: int, q: int,
                     device=None) -> torch.Tensor:
     """Indices, into a tile's tile_size^2 pixels, of the pixels of the
-    sub-tile that block `q` of a tile of the backward kernel works on at
-    `pix` pixels a thread: BWD_SUB_TILE wide and BWD_SUB_TILE * pix high,
-    sub-tile column q % n and row q // n of n = tile_size / BWD_SUB_TILE."""
-    n = tile_size // BWD_SUB_TILE
-    rows = (q // n) * BWD_SUB_TILE * pix \
-        + torch.arange(BWD_SUB_TILE * pix, device=device)
-    cols = (q % n) * BWD_SUB_TILE + torch.arange(BWD_SUB_TILE, device=device)
+    sub-tile that block `q` of a tile of either kernel works on at `pix`
+    pixels a thread: SUB_TILE wide and SUB_TILE * pix high, sub-tile column
+    q % n and row q // n of n = tile_size / SUB_TILE."""
+    n = tile_size // SUB_TILE
+    rows = (q // n) * SUB_TILE * pix \
+        + torch.arange(SUB_TILE * pix, device=device)
+    cols = (q % n) * SUB_TILE + torch.arange(SUB_TILE, device=device)
     return (rows[:, None] * tile_size + cols[None, :]).reshape(-1)
+
+
+def thread_pixels(tile_size: int, pix: int, q: int) -> torch.Tensor:
+    """[8 warps, 32 lanes, pix] indices, into a tile's pixels, of the pixels
+    that each thread of block `q` of a tile owns, as the kernels compute
+    them: warp w works on patch (w % 2, w // 2) of the sub-tile, PATCH_W
+    wide and LANE_ROWS * pix high, lane l on its column l % 8 and on the
+    rows l // 8 + LANE_ROWS * k, k < pix."""
+    n = tile_size // SUB_TILE
+    warp = torch.arange(8)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    k = torch.arange(pix)[None, None, :]
+    ix = (q % n) * SUB_TILE + (warp % 2) * PATCH_W + lane % 8
+    iy = (q // n) * SUB_TILE * pix + (warp // 2) * LANE_ROWS * pix \
+        + lane // 8 + LANE_ROWS * k
+    return iy * tile_size + ix
 
 
 def patch_missed(stream: torch.Tensor, x0, y0, w: int, h: int) -> torch.Tensor:
     """[n] bool: whether the footprint {w >= 1e-5} of each instance of
     `stream` surely misses the patch of pixels [x0, x0 + w - 1] x [y0, y0 +
     h - 1] (`x0`, `y0` numbers or [n] tensors), so that a warp that owns the
-    patch may skip the instance without computing a pixel.  The backward
-    kernel's rule in plain PyTorch, in float32: with A = -qa, B = -qb,
+    patch may skip the instance without computing a pixel.  Both
+    kernels' rule in plain PyTorch, in float32: with A = -qa, B = -qb,
     C = -qc the form Q = -lw = A dx^2 + B dx dy + C dy^2 is convex, so
     unless the centre lies inside the patch its least value over the patch
     is taken on one of the four edges, on each at the stationary point
@@ -305,8 +341,19 @@ def _nvcc() -> str:
                        "CUDA raster kernels cannot be built")
 
 
-def kernel_sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def kernel_sources(csrc: Path = CSRC_DIR) -> list:
+    """The sources nvcc compiles, one object file each."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def library_path(csrc: Path = CSRC_DIR) -> Path:
+    """Where the library built from `csrc` lives: its name carries a hash of
+    the nvcc flags and of every source and header (`*.cu`, `*.cuh`), so an
+    edit to any of them builds a new one.  Builds nothing."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in kernel_sources(csrc) + sorted(csrc.glob("*.cuh")):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def _build(path: Path) -> str:
@@ -346,10 +393,7 @@ def _build(path: Path) -> str:
 def kernel_library() -> KernelLibrary:
     """Build (once per set of sources and flags) and load the library that
     holds every kernel of `csrc/`."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in kernel_sources():
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    path = BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
+    path = library_path()
     seconds, log = 0.0, ""
     if not path.exists():
         t0 = time.perf_counter()
@@ -365,10 +409,11 @@ def kernel_library() -> KernelLibrary:
     # (..., oraw, gout, [t0,] d_inst, [dt0,] part_g, sync, stream)
     lib.raster_bwd_launch.argtypes = head + [ptr] * 6
     lib.raster_bwd_t0_launch.argtypes = head + [ptr] * 8
+    lib.raster_fwd_blocks_per_sm.argtypes = [i32, i32]
     lib.raster_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
     for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
                lib.raster_bwd_launch, lib.raster_bwd_t0_launch,
-               lib.raster_bwd_blocks_per_sm):
+               lib.raster_fwd_blocks_per_sm, lib.raster_bwd_blocks_per_sm):
         fn.restype = i32
     return KernelLibrary(lib, path, seconds, log)
 
@@ -512,7 +557,7 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
     # and any column no tile range covers, unwritten.
     d_stream = torch.zeros_like(stream)
     T = tile_start.shape[0]
-    quads = (tile_size // BWD_SUB_TILE) ** 2
+    quads = (tile_size // SUB_TILE) ** 2
     scratch = (None, None)
     if quads > 1:
         # Up to `quads` blocks work on one tile, each on a sub-tile: room

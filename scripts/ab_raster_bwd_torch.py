@@ -63,6 +63,14 @@ SIZE, N = chip_smoke.VIEW_SIZE, chip_smoke.N_GAUSSIANS
 RANKS = chip_smoke.RING_RANKS
 
 
+def card() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
 def ptxas_lines(log: str):
     return [line.strip() for line in log.splitlines()
             if "Compiling entry" in line or "registers" in line
@@ -70,12 +78,13 @@ def ptxas_lines(log: str):
 
 
 def build_other(source: Path) -> ctypes.CDLL:
-    """Compile `source` alone into a library of its own."""
+    """Compile `source` alone into a library of its own; its includes are
+    looked up in the tree's `csrc/` too."""
     out = rc.BUILD_DIR / "ab" / f"{source.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    done = subprocess.run([rc._nvcc(), *rc.NVCC_FLAGS, "-shared", "-o",
-                           str(out), str(source)], capture_output=True,
-                          text=True)
+    done = subprocess.run([rc._nvcc(), *rc.NVCC_FLAGS, "-I", str(rc.CSRC_DIR),
+                           "-shared", "-o", str(out), str(source)],
+                          capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{done.stdout}"
                            f"{done.stderr}")
@@ -100,7 +109,7 @@ def runner(lib: ctypes.CDLL, abi: str, name: str):
         T = start.shape[0]
         tail = [torch.cuda.current_stream().cuda_stream]
         if abi == "v2":
-            quads = (ts // rc.BWD_SUB_TILE) ** 2
+            quads = (ts // rc.SUB_TILE) ** 2
             part = torch.empty(quads, *stream.shape, device=stream.device)
             sync = torch.zeros((1 + quads) * T, dtype=torch.int32,
                                device=stream.device)
@@ -137,35 +146,12 @@ def in_turns(kernels: dict, measure) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--other", action="append", default=[],
-                   help="SOURCE.cu or SOURCE.cu:ABI")
-    p.add_argument("--other-abi", choices=("v1", "v2"), default="v1")
-    p.add_argument("--output", type=Path, default=None)
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_raster_bwd_torch: needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-
-    built = rc.kernel_library()
-    print("the tree's kernels:")
-    for line in ptxas_lines(built.build_log):
-        print(f"    ptxas: {line}")
-    blocks = {f"tile{ts}_pix{pix}{'_t0' if t0 else ''}":
-              built.lib.raster_bwd_blocks_per_sm(ts, pix, t0)
-              for ts, pix in ((16, 1), (32, 1), (32, 2)) for t0 in (0, 1)}
-    kernels = {"tree": runner(built.lib, "v2", "tree")}
-    for other in args.other:
-        source, _, abi = other.partition(":")
-        kernels[Path(source).stem] = runner(build_other(Path(source)),
-                                            abi or args.other_abi, source)
-
-    # The states of chip_smoke.py's phases 7 and 11.
+def trained_projections(dev):
+    """The states of chip_smoke.py's phases 7 and 11 (the flagship scene
+    trained for 6 steps on one device, and for 4 ring steps with 5 ranks
+    on the card, towards a render of the seed-7 scene), projected into the
+    bench view: (target image, single-device projection, ring projection).
+    """
     settings = RenderSettings(image_height=SIZE, image_width=SIZE,
                               bg_color=(1.0, 1.0, 1.0), tile_size=32,
                               color_mode="sh", sh_degree=3)
@@ -204,6 +190,35 @@ def main(argv=None) -> int:
 
     proj_one = trained(chip_smoke.CAPACITY, chip_smoke.TRAIN_STEPS, False)
     proj_ring = trained(chip_smoke.RING_CAPACITY, chip_smoke.RING_STEPS, True)
+    return target, proj_one, proj_ring
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--other", action="append", default=[],
+                   help="SOURCE.cu or SOURCE.cu:ABI")
+    p.add_argument("--other-abi", choices=("v1", "v2"), default="v1")
+    p.add_argument("--output", type=Path, default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_raster_bwd_torch: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = card()
+
+    built = rc.kernel_library()
+    print("the tree's kernels:")
+    for line in ptxas_lines(built.build_log):
+        print(f"    ptxas: {line}")
+    blocks = {f"tile{ts}_pix{pix}{'_t0' if t0 else ''}":
+              built.lib.raster_bwd_blocks_per_sm(ts, pix, t0)
+              for ts, pix in ((16, 1), (32, 1), (32, 2)) for t0 in (0, 1)}
+    kernels = {"tree": runner(built.lib, "v2", "tree")}
+    for other in args.other:
+        source, _, abi = other.partition(":")
+        kernels[Path(source).stem] = runner(build_other(Path(source)),
+                                            abi or args.other_abi, source)
+
+    target, proj_one, proj_ring = trained_projections(dev)
     result = {"card": smi, "device": torch.cuda.get_device_name(0),
               "blocks_per_sm": blocks, "cases": {}}
     first_other = next((k for k in kernels if k != "tree"), None)

@@ -217,3 +217,24 @@ def test_backward_kernel_patch_cases_on_card(cuda, tile_size, with_t0):
     chip_smoke.check_patch_cases(rc, tile_size, cuda, with_t0)
     assert (rc.raster_bwd.launches, rc.raster_bwd.launches_t0) == (
         before[0] + 2 * (not with_t0), before[1] + 2 * with_t0)
+
+
+@pytest.mark.parametrize("launch", ["band", "image"])
+@pytest.mark.parametrize("with_t0", [False, True])
+@pytest.mark.parametrize("tile_size", rc.KERNEL_TILE_SIZES)
+def test_forward_kernel_patch_cases_on_card(cuda, tile_size, with_t0,
+                                            launch):
+    """The forward kernel on the streams of `chip_smoke.patch_stream`:
+    slices of 0, 1, 63, 64, 65 and 257 instances, footprints that end
+    exactly on a patch's edge, a splat that covers the whole tile, w == 1
+    with op * w >= 1 and, with t0, a tile with one open quadrant and a tile
+    that arrives closed (its accumulators exactly 0, T_end = t0).  Against
+    the plain version within chip_smoke.py's `gate_acc`, two launches
+    bitwise equal; a launch of fewer tiles than the card has SMs ("band")
+    and one of more ("image")."""
+    import chip_smoke
+    rows = chip_smoke.patch_tile_rows(cuda)[launch == "image"]
+    before = (rc.raster_fwd.launches, rc.raster_fwd.launches_t0)
+    chip_smoke.check_fwd_patch_cases(rc, tile_size, cuda, with_t0, rows)
+    assert (rc.raster_fwd.launches, rc.raster_fwd.launches_t0) == (
+        before[0] + 2 * (not with_t0), before[1] + 2 * with_t0)

@@ -206,14 +206,14 @@ def test_sub_tile_partials_add_up_to_the_tile(with_t0, pix):
 
 @pytest.mark.parametrize("tile_size,pix", [(16, 1), (32, 1), (32, 2)])
 def test_sub_tiles_tile_the_tile(tile_size, pix):
-    n = tile_size ** 2 // (rc.BWD_SUB_TILE ** 2 * pix)
+    n = tile_size ** 2 // (rc.SUB_TILE ** 2 * pix)
     parts = [rc.sub_tile_pixels(tile_size, pix, q) for q in range(n)]
     assert all(p.numel() == 256 * pix for p in parts)
     assert torch.equal(torch.cat(parts).sort().values,
                        torch.arange(tile_size ** 2))
     # The last sub-tile starts in the last sub-tile column and row.
-    col = tile_size - rc.BWD_SUB_TILE
-    row = tile_size - rc.BWD_SUB_TILE * pix
+    col = tile_size - rc.SUB_TILE
+    row = tile_size - rc.SUB_TILE * pix
     assert int(parts[-1][0]) == row * tile_size + col
 
 
