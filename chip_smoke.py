@@ -17,7 +17,12 @@ ranks on the one card: the kernels' `t0` builds against their plain
 versions and as a chain against one single pass, a full-width ring render
 against the single-device render, ring gradients against single-device
 gradients, four full-width ring train steps, and both entry points with
---tile-shards 5 --ring.  Any failure raises; nothing falls back to the CPU.
+--tile-shards 5 --ring.  Last, the trainer entry point: `main_torch.py`
+trains a COLMAP scene of that SH-3 scene (8 views at 800x800, 100,000
+points, written with the port's own COLMAP writers and PNG codec) with the
+rendering and pool of configs/sdf_tex_30k.yaml for 16 steps, resumes for
+4, and `scripts/evaluate_torch.py` and `scripts/export_ply_torch.py` run on
+its checkpoint.  Any failure raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -28,9 +33,11 @@ import io
 import json
 import shutil
 import subprocess
+import struct
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -493,6 +500,280 @@ def load_script(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """The unit quaternion (w, x, y, z), w >= 0, of a rotation matrix."""
+    K = np.array([
+        [R[0, 0] - R[1, 1] - R[2, 2], 0, 0, 0],
+        [R[1, 0] + R[0, 1], R[1, 1] - R[0, 0] - R[2, 2], 0, 0],
+        [R[2, 0] + R[0, 2], R[2, 1] + R[1, 2], R[2, 2] - R[0, 0] - R[1, 1], 0],
+        [R[1, 2] - R[2, 1], R[2, 0] - R[0, 2], R[0, 1] - R[1, 0],
+         R[0, 0] + R[1, 1] + R[2, 2]]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return q if q[0] >= 0 else -q
+
+
+def write_colmap_scene(root: Path, g, n_points: int, settings, n_views: int,
+                       size: int) -> list:
+    """A COLMAP scene of `g` on disk, written by the port's own writers and
+    PNG codec: a PINHOLE size x size camera (60 degrees), `n_views`
+    turntable poses, points3D.bin = the first `n_points` Gaussians' centres
+    with their DC colours, and images/ = renders of `g` from the poses.
+    Returns the turntable cameras."""
+    from mini3dgs_tpu_torch.core.sh import C0
+    from mini3dgs_tpu_torch.data import colmap
+    from mini3dgs_tpu_torch.ops.renderer import render
+    from mini3dgs_tpu_torch.utils.io import save_image
+    from mini3dgs_tpu_torch.utils.vis import turntable_cameras
+    sp = root / "sparse" / "0"
+    sp.mkdir(parents=True)
+    (root / "images").mkdir()
+    f = 0.5 * size / np.tan(np.radians(60.0) / 2)
+    colmap.write_cameras_binary(
+        {1: colmap.ColmapCamera(1, "PINHOLE", size, size,
+                                np.array([f, f, size / 2, size / 2]))},
+        str(sp / "cameras.bin"))
+    cams = turntable_cameras(n_views, width=size, image_height=size,
+                             device=g.device)
+    imgs = {}
+    for i, cam in enumerate(cams):
+        R_wc = cam.R.cpu().double().numpy().T
+        imgs[i + 1] = colmap.ColmapImage(
+            i + 1, rotmat_to_qvec(R_wc), -R_wc @ cam.T.cpu().double().numpy(),
+            1, f"view_{i:03d}.png")
+        with torch.no_grad():
+            save_image(render(g, cam, settings)["image"],
+                       str(root / "images" / imgs[i + 1].name))
+    colmap.write_images_binary(imgs, str(sp / "images.bin"))
+    rgb = torch.clamp(C0 * g.features_dc[:n_points, 0] + 0.5, 0.0, 1.0)
+    colmap.write_points3d_binary(g.xyz[:n_points].cpu().numpy(),
+                                 rgb.cpu().numpy(), str(sp / "points3D.bin"))
+    return cams
+
+
+def paeth_png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of `img` [H, W, 3] uint8 with every row under the
+    Paeth filter, the costliest one to undo (a writer with adaptive
+    filtering picks it often on photographs)."""
+    from mini3dgs_tpu_torch.utils import png
+    H, W, C = img.shape
+    x = img.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((H, 1), 4, np.uint8),
+                           ((x - pred) & 255).astype(np.uint8).reshape(H, -1)],
+                          axis=1)
+    return (png.SIGNATURE
+            + png._chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + png._chunk(b"IEND", b""))
+
+
+def parse_log(text: str) -> dict:
+    """main_torch's `[it] k=v ...` lines as {it: {k: float}}."""
+    log = {}
+    for line in text.splitlines():
+        if line.startswith("[") and "]" in line and "=" in line:
+            head, _, rest = line.partition("]")
+            if head[1:].strip().isdigit():
+                log[int(head[1:])] = {k: float(v) for k, v in
+                                      (kv.split("=") for kv in rest.split())}
+    return log
+
+
+class MethodTimes:
+    """Wraps methods of a class so that each call is timed on the host
+    clock up to a device synchronise; `self` of the first wrapped method's
+    calls is kept in `objects`.  Restores the methods on exit."""
+
+    def __init__(self, cls, names, device):
+        self.cls, self.names, self.device = cls, names, device
+        self.times = {n: [] for n in names}
+        self.objects = []
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.cls, n) for n in self.names}
+        for n in self.names:
+            def wrapper(obj, *a, _n=n, **kw):
+                if _n == self.names[0]:
+                    self.objects.append(obj)
+                self._sync()
+                t0 = time.perf_counter()
+                out = self.saved[_n](obj, *a, **kw)
+                self._sync()
+                self.times[_n].append(time.perf_counter() - t0)
+                return out
+            setattr(self.cls, n, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.cls, n, fn)
+
+
+def trainer_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
+                        steps: int = 16) -> dict:
+    """Phase 13: `main_torch.main` trains a COLMAP scene of `g` (8 views,
+    points3D = its first `n_points` centres) with the rendering and pool of
+    configs/sdf_tex_30k.yaml for `steps` steps (prunes at 6 and 12;
+    densify, opacity reset and the pool's compaction at 8: a second densify
+    event could grow the live count past the three quarters of the pool at
+    which the compaction is skipped), then resumes for 4 more;
+    `scripts/evaluate_torch.py` and `scripts/export_ply_torch.py` run on
+    its checkpoint.  Raises on any check that fails; returns the numbers
+    the phase prints."""
+    import main_torch
+    from mini3dgs_tpu_torch.config import ConfigManager
+    from mini3dgs_tpu_torch.core.gaussians import compact_capacity
+    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+    from mini3dgs_tpu_torch.ops.renderer import RenderSettings
+    from mini3dgs_tpu_torch.train import checkpoint as ckpt
+    from mini3dgs_tpu_torch.train import density
+    from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
+    from mini3dgs_tpu_torch.utils import png
+    from mini3dgs_tpu_torch.utils.gaussian_ply import import_gaussians_ply
+
+    cfg = ConfigManager.load_from_yaml(str(REPO / "configs" /
+                                           "sdf_tex_30k.yaml"))
+    if (cfg.image_height, cfg.image_width, cfg.tile_size, cfg.sh_degree,
+            cfg.color_mode, cfg.background_color, cfg.capacity) != (
+            800, 800, 32, 3, "sh", [1.0, 1.0, 1.0], 2 ** 19):
+        raise AssertionError(f"configs/sdf_tex_30k.yaml reads as {cfg}")
+    settings = RenderSettings(image_height=size, image_width=size,
+                              bg_color=tuple(cfg.background_color),
+                              tile_size=cfg.tile_size, color_mode="sh",
+                              sh_degree=cfg.sh_degree)
+    scene, out = workdir / "scene", workdir / "out"
+    t0 = time.perf_counter()
+    write_colmap_scene(scene, g, n_points, settings, 8, size)
+    write_s = time.perf_counter() - t0
+    # One target image under the Paeth filter on every row: the decoder's
+    # slowest case, timed on this host and held against the image.
+    view0 = png.decode((scene / "images" / "view_000.png").read_bytes())
+    paeth = paeth_png(view0)
+    t0 = time.perf_counter()
+    if not np.array_equal(png.decode(paeth), view0):
+        raise AssertionError("the PNG decoder misread Paeth rows")
+    paeth_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(
+        cfg, data_path=str(scene), output_path=str(out),
+        image_height=size, image_width=size, iterations=steps,
+        log_interval=4, eval_interval=steps, save_interval=steps,
+        densify_from_iter=8, densify_interval=4, densify_until_iter=8,
+        prune_interval=6, opacity_reset_interval=8, sh_increase_interval=4,
+        device=dev.type)
+    cfg_path = workdir / "config.yaml"
+    ConfigManager.save_to_yaml(cfg, str(cfg_path))
+    if ConfigManager.load_from_yaml(str(cfg_path)) != cfg:
+        raise AssertionError("the written config does not read back")
+    names = ["setup", "train_step", "save_checkpoint", "load_checkpoint"]
+
+    def entry(fn, argv):
+        """(return code, stdout, MethodTimes) of one entry-point call, the
+        kernels' counts set to 0 just before it and read just after."""
+        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+        buf = io.StringIO()
+        with MethodTimes(GaussianTrainer, names, dev) as mt, \
+                contextlib.redirect_stdout(buf):
+            code = fn(argv)
+        mt.launches = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+        return code, buf.getvalue(), mt
+
+    base = ["--config", str(cfg_path), "--device", dev.type]
+    code, text, run = entry(main_torch.main, base)
+    tr = run.objects[0]
+    log = parse_log(text)
+    final = [l for l in text.splitlines() if l.startswith("final: psnr=")]
+    compacts = [l for l in text.splitlines() if l.startswith("[compact]")]
+    n_test = len(tr.dataset.get_test_cameras())
+    dense = [it for it, m in log.items() if "n_clone" in m]
+    if code != 0 or len(final) != 1 or sorted(log) != list(
+            range(4, steps + 1, 4)):
+        raise AssertionError(f"main_torch failed: rc {code}\n{text}")
+    if (len(tr.train_cameras()), n_test) != (7, 1):
+        raise AssertionError("the COLMAP split is not 7 train, 1 test view")
+    if not dense or not any(log[it]["n_split"] + log[it]["n_clone"] > 0
+                            for it in dense):
+        raise AssertionError(f"no densify event split or cloned: {log}")
+    # one compaction, after the window, to the size `compact` picks
+    alive_at = int(compacts[0].split("(")[1].split()[0]) if compacts else 0
+    pool = tr.state.gaussians.capacity
+    if len(compacts) != 1 or pool != compact_capacity(alive_at):
+        raise AssertionError(f"compaction: {compacts}, pool {pool}")
+    # On the CPU (a rehearsal) the wrappers run the plain versions and
+    # count nothing.
+    per = 1 if dev.type == "cuda" else 0
+    if run.launches != (per * (steps + 2 * n_test), per * steps):
+        raise AssertionError(f"{steps} steps and 2 validations launched the "
+                             f"kernels {run.launches} times")
+    # The loss falls over every logged stretch that no densify or opacity
+    # reset interrupts.  Across the events at 8 it rises: the reset drops
+    # every opacity to 0.01, and 8 steps do not win that back.
+    its = sorted(log)
+    losses = [log[it]["total_loss"] for it in its]
+    psnr_final = float(final[0].split("psnr=")[1].split()[0])
+    quiet = [(a, b) for a, b in zip(its, its[1:])
+             if not any(density.should_densify(i, cfg) or (
+                 0 < cfg.opacity_reset_interval
+                 and i % cfg.opacity_reset_interval == 0
+                 and i <= cfg.densify_until_iter) for i in range(a, b))]
+    if not (np.isfinite(losses).all() and np.isfinite(psnr_final) and quiet
+            and all(log[b]["total_loss"] < log[a]["total_loss"]
+                    for a, b in quiet)):
+        raise AssertionError(f"losses {log}, final {final}")
+    n_alive = tr.state.gaussians.num_alive()
+
+    code, text, resume = entry(main_torch.main, base + [
+        "--resume", str(steps), "--iterations", "4"])
+    r_log = parse_log(text)
+    if code != 0 or sorted(r_log) != [steps + 4] or \
+            resume.objects[0].iteration != steps + 4 or \
+            resume.launches != (per * (4 + n_test), per * 4) or \
+            ckpt.latest_checkpoint_iteration(str(out)) != steps + 4:
+        raise AssertionError(f"the resumed run failed: {resume.launches}\n"
+                             f"{text}")
+
+    code, text, ev = entry(load_script("evaluate_torch").main, [
+        "--config", str(cfg_path), "--data", str(scene), "--output",
+        str(out), "--checkpoint", str(steps), "--device", dev.type])
+    mean = [l for l in text.splitlines() if l.startswith("mean: psnr=")]
+    psnr_eval = float(mean[0].split("psnr=")[1].split()[0]) if mean else None
+    if code != 0 or psnr_eval is None or abs(psnr_eval - psnr_final) > 0.01:
+        raise AssertionError(f"evaluate_torch: {text} against {final}")
+
+    ply = workdir / "model.ply"
+    code, text, ex = entry(load_script("export_ply_torch").main, [
+        "--config", str(cfg_path), "--output", str(out), "--checkpoint",
+        str(steps), "--out", str(ply), "--device", dev.type])
+    n_ply = import_gaussians_ply(str(ply)).num_alive()
+    if code != 0 or n_ply != n_alive:
+        raise AssertionError(f"export_ply_torch wrote {n_ply} Gaussians, "
+                             f"not {n_alive}: {text}")
+    return {
+        "steps": steps, "size": size, "points": n_points,
+        "launches": run.launches, "launches_resume": resume.launches,
+        "log": {it: {k: log[it][k] for k in ("total_loss", "n_split",
+                                             "n_clone", "n_pruned",
+                                             "n_alive") if k in log[it]}
+                for it in sorted(log)},
+        "compaction": compacts[0], "pool": pool, "n_alive": n_alive,
+        "psnr": psnr_final, "psnr_eval": psnr_eval, "write_scene_s": write_s,
+        "png_paeth_decode_s": paeth_s,
+        "setup_s": run.times["setup"][0],
+        "step_ms_median": float(np.median(run.times["train_step"])) * 1e3,
+        "step_ms_min": min(run.times["train_step"]) * 1e3,
+        "step_ms_max": max(run.times["train_step"]) * 1e3,
+        "save_s": run.times["save_checkpoint"],
+        "load_s": resume.times["load_checkpoint"] + ev.times[
+            "load_checkpoint"] + ex.times["load_checkpoint"]}
 
 
 def main() -> int:
@@ -1323,12 +1604,40 @@ def main() -> int:
           f"iterations, backward launches with t0 "
           f"{rc.raster_bwd.launches_t0}: {json.dumps(final)}", flush=True)
 
-    # ---- 13. result ---------------------------------------------------
+    # ---- 13. the trainer entry point at full width --------------------
+    # main_torch.py on a COLMAP scene of the SH-3 set `g` of phase 4, with
+    # configs/sdf_tex_30k.yaml's rendering and pool; then the resume,
+    # scripts/evaluate_torch.py and scripts/export_ply_torch.py.
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        tr13 = trainer_entry_phase(dev, g, N_GAUSSIANS, VIEW_SIZE, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[13 trainer entry point] main_torch.py, configs/sdf_tex_30k.yaml "
+          f"rendering and pool, {tr13['steps']} steps on a COLMAP scene of "
+          f"{tr13['points']} points, 7 train + 1 test views at "
+          f"{VIEW_SIZE}^2: launches fwd/bwd {tr13['launches']} (resume "
+          f"{tr13['launches_resume']}), {tr13['compaction']}, final PSNR "
+          f"{tr13['psnr']:.2f} (evaluate_torch.py {tr13['psnr_eval']:.2f}), "
+          f"n_alive {tr13['n_alive']}\n"
+          f"  log: {json.dumps(tr13['log'])}\n"
+          f"  scene written in {tr13['write_scene_s']:.2f} s; one "
+          f"{VIEW_SIZE}^2 PNG with Paeth rows decoded in "
+          f"{tr13['png_paeth_decode_s']:.3f} s; setup (PNG "
+          f"decode and points3D read included) {tr13['setup_s']:.2f} s; "
+          f"trainer step ms median {tr13['step_ms_median']:.2f} min "
+          f"{tr13['step_ms_min']:.2f} max {tr13['step_ms_max']:.2f}; "
+          f"checkpoint save s {' '.join(f'{t:.3f}' for t in tr13['save_s'])}"
+          f"; load s {' '.join(f'{t:.3f}' for t in tr13['load_s'])} | {smi}",
+          flush=True)
+
+    # ---- 14. result ---------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "raster_fwd", "route": "cuda",
          "source": "mini3dgs_tpu_torch/csrc/raster_fwd.cu",
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:288",
          "launches": train_launches[0], "launches_render": render_launches,
+         "launches_trainer": tr13["launches"][0],
          "max_abs_err": max(fwd_err, fwd_patch_err),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
@@ -1336,6 +1645,7 @@ def main() -> int:
          "source": "mini3dgs_tpu_torch/csrc/raster_bwd.cu",
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:377",
          "launches": train_launches[1],
+         "launches_trainer": tr13["launches"][1],
          "max_abs_err": max(bwd_err, patch_err),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},

@@ -9,6 +9,7 @@ by ~1e-7 relative, enough to flip the toward-zero truncation in binning.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -40,6 +41,10 @@ def focal_from_fov(fov, pixels: int) -> torch.Tensor:
     """f = 0.5 * pixels / tan(fov/2), in float32."""
     fov = torch.as_tensor(fov, dtype=torch.float32)
     return 0.5 * pixels / torch.tan(fov * 0.5)
+
+
+def fov_from_focal(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
 @dataclass(frozen=True)

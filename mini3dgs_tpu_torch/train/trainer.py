@@ -1,30 +1,43 @@
-"""The single-device training step and the density-control steps around it
-(counterpart of mini3dgs_tpu/train/trainer.py's `make_step_body`,
-`make_densify_step`, `make_prune_step` and the opacity reset).
+"""Training orchestration (counterpart of mini3dgs_tpu/train/trainer.py).
+
+The single-device step and the density-control steps around it
+(`train_step`, `densify_step`, `prune_step`, `reset_opacity_step`), the
+pool's capacity changes (`grow_capacity`, `compact_train_state`), and
+`GaussianTrainer`, which runs them: dataset -> Gaussians from its point
+cloud -> steps with densify / prune / opacity reset / progressive SH /
+growth / one compaction after the densify window -> validation ->
+checkpoints.
 
 State is functional, as in the JAX package: every step takes a `TrainState`
 and returns a new one, leaving its argument untouched.  PyTorch runs
 eagerly, so there is nothing to jit and a step is a plain function of
-(state, camera).  The step over a mesh of ranks is
-parallel/sharded.make_sharded_train_step, which shares `apply_gradients`.
-`GaussianTrainer` (datasets, checkpoints, capacity growth, compaction) is
-not ported yet.
+(state, camera).  The JAX trainer's K-step device loop and its stream
+sizers work around static shapes and dispatch cost on the TPU and have no
+counterpart: the port's stream holds exactly the live instances.  The step
+over a mesh of ranks is parallel/sharded.make_sharded_train_step, which
+shares `apply_gradients`; `GaussianTrainer` does not drive it yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..config import TrainingConfig
 from ..core.camera import Camera
-from ..core.gaussians import Gaussians, reset_opacity
-from ..core.loss import gaussian_loss
+from ..core.gaussians import (Gaussians, compact, compact_capacity,
+                              create_from_pcd, empty_gaussians, reset_opacity,
+                              scene_extent_of)
+from ..core.loss import gaussian_loss, ssim
+from ..core.sh import C0
+from ..data.dataset import load_dataset
 from ..ops.renderer import RenderSettings, render
+from ..utils.metrics import psnr
 from . import density
 from .exposure import apply_exposure, init_exposure
 from .optimizer import (AdamState, adam_update, group_lrs, init_adam,
@@ -193,3 +206,275 @@ def prune_step(state: TrainState,
 
 def reset_opacity_step(state: TrainState) -> TrainState:
     return state.replace(gaussians=reset_opacity(state.gaussians, 0.01))
+
+
+def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
+    """The pool (and the Adam moments) padded to `new_capacity` slots: the
+    new slots are dead, with zero moments."""
+    g = state.gaussians
+    old = g.capacity
+    if new_capacity < old:
+        raise ValueError(f"grow_capacity: {new_capacity} < {old} slots")
+    pad = empty_gaussians(new_capacity - old, g.device)
+    new_g = Gaussians(**{f.name: torch.cat([getattr(g, f.name),
+                                            getattr(pad, f.name)])
+                         for f in dataclasses.fields(g)})
+
+    def pad_moment(x):
+        return torch.cat([x, x.new_zeros((new_capacity - old,) + x.shape[1:])])
+
+    s = state.opt_state
+    opt = AdamState(count=s.count, sched_count=s.sched_count,
+                    mu={k: pad_moment(v) for k, v in s.mu.items()},
+                    nu={k: pad_moment(v) for k, v in s.nu.items()})
+    return state.replace(gaussians=new_g, opt_state=opt)
+
+
+def compact_train_state(state: TrainState,
+                        capacity: Optional[int] = None) -> TrainState:
+    """Alive Gaussians packed to the front of a smaller pool
+    (core.gaussians.compact), their Adam moments gathered along."""
+    g = state.gaussians
+    idx = torch.nonzero(g.alive)[:, 0]
+    new_g = compact(g, capacity)
+
+    def gather(x):
+        out = x.new_zeros((new_g.capacity,) + x.shape[1:])
+        out[:idx.shape[0]] = x[idx]
+        return out
+
+    s = state.opt_state
+    opt = AdamState(count=s.count, sched_count=s.sched_count,
+                    mu={k: gather(v) for k, v in s.mu.items()},
+                    nu={k: gather(v) for k, v in s.nu.items()})
+    return state.replace(gaussians=new_g, opt_state=opt)
+
+
+def resolve_device(name: str) -> torch.device:
+    """`config.device` as a torch device: "cpu" is the CPU; "cuda" and the
+    JAX package's "tpu" are the card, with its index made explicit (a
+    tensor reports "cuda:0", never "cuda").  Raises if the card is asked
+    for and there is none."""
+    dev = torch.device("cuda" if name in ("tpu", "cuda") else name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asks for the card, but "
+                           "torch.cuda.is_available() is False; set device "
+                           "to 'cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class GaussianTrainer:
+    """setup / train / train_step / validate / save_checkpoint /
+    load_checkpoint / get_scene_extent, on `config.device`."""
+
+    def __init__(self, config: TrainingConfig,
+                 settings: Optional[RenderSettings] = None):
+        self.config = config
+        self.settings = settings
+        self.device = resolve_device(config.device)
+        self.dataset = None
+        self.state: Optional[TrainState] = None
+        self.iteration = 0
+        self.scene_extent = 0.0
+        self.train_losses: List[float] = []
+        self.val_losses: List[float] = []
+        self._state_compacted = False
+
+    # ------------------------------------------------------------------
+    def setup(self, dataset=None, gaussians: Optional[Gaussians] = None):
+        """Dataset (loaded from the config unless given) -> Gaussians from
+        its point cloud (unless given) -> render settings -> scene extent
+        -> position-LR scaling -> train state."""
+        cfg = self.config
+        if cfg.mesh_data * cfg.mesh_tile > 1:
+            raise ValueError(
+                f"mesh_data * mesh_tile = {cfg.mesh_data * cfg.mesh_tile}: "
+                "GaussianTrainer over a mesh is not ported yet (ROADMAP "
+                "section A, item 4); parallel/sharded.py has the sharded "
+                "step itself")
+        if dataset is None and gaussians is None:
+            dataset = load_dataset(cfg, self.device)
+        self.dataset = dataset
+        for cam in list(self.train_cameras()) + list(
+                dataset.get_test_cameras() if dataset else []):
+            if cam.R.device != self.device:
+                raise ValueError(f"camera {cam.uid} is on {cam.R.device}, "
+                                 f"the trainer on {self.device}")
+        if gaussians is None:
+            points, colors = dataset.get_point_cloud()
+            if cfg.color_mode == "sh" and colors is not None:
+                # SH decode is rgb = C0*dc + 0.5 (core/sh.py); invert the DC
+                # term so the initial render reproduces the cloud's colours
+                colors = (np.asarray(colors, np.float32) - 0.5) / C0
+            cap = max(cfg.capacity,
+                      1 << int(np.ceil(np.log2(max(len(points), 2)))))
+            gaussians = create_from_pcd(points, colors, capacity=cap,
+                                        device=self.device)
+        gaussians = gaussians.to(self.device)
+        if self.settings is None:
+            cam0 = self.train_cameras()[0]
+            # A dataset whose targets are composited onto a fixed background
+            # (BlenderDataset) sets the render background.
+            bg = getattr(self.dataset, "bg_color", None)
+            if bg is None:
+                bg = cfg.background_color
+            self.settings = RenderSettings(
+                image_height=cam0.height, image_width=cam0.width,
+                bg_color=tuple(float(v) for v in bg),
+                tile_size=cfg.tile_size, radius_min=cfg.radius_min,
+                radius_max=cfg.radius_max, color_mode=cfg.color_mode,
+                sh_degree=0 if cfg.color_mode == "dc_sigmoid" else cfg.sh_degree,
+                antialias=cfg.antialias,
+                raster="tiles" if cfg.use_pallas else "golden")
+        # Canonical scene extent: 1.1x the camera rig's largest distance
+        # from its centre (the unit of the densify thresholds and of the
+        # position-LR scaling); without cameras, the cloud's mean range.
+        if self.dataset is not None and getattr(self.dataset, "cameras",
+                                                None):
+            self.scene_extent = 1.1 * float(
+                self.dataset.get_scene_info()["radius"])
+        else:
+            self.scene_extent = float(scene_extent_of(gaussians))
+        self.config = scale_position_lr(self.config, self.scene_extent)
+        n_cams = len(self.train_cameras()) if self.dataset is not None else 0
+        self.state = create_train_state(gaussians, self.config,
+                                        n_cameras=n_cams)
+
+    def train_cameras(self) -> Sequence[Camera]:
+        return self.dataset.get_train_cameras() if self.dataset else []
+
+    def get_scene_extent(self) -> float:
+        return float(scene_extent_of(self.state.gaussians))
+
+    # ------------------------------------------------------------------
+    def active_sh_degree(self) -> int:
+        """Progressive SH unlock (canonical 3DGS: one band per interval)."""
+        if self.settings.color_mode != "sh" or self.config.sh_increase_interval <= 0:
+            return self.settings.sh_degree
+        return min(self.iteration // self.config.sh_increase_interval,
+                   self.config.sh_degree)
+
+    def train_step(self, camera: Camera, cam_idx: int = 0) -> Dict:
+        """One step at the active SH degree.  The metrics are tensors on the
+        device (the stream counters ints): reading one waits for it."""
+        self.state, metrics = train_step(
+            self.state, camera, self.config, self.settings, cam_idx,
+            sh_degree=self.active_sh_degree())
+        self.iteration += 1
+        return metrics
+
+    def _clone_noise(self, iteration: int, capacity: int) -> torch.Tensor:
+        """The clone jitter's N(0,1) draws [capacity, 3] for the densify
+        event at `iteration`, from a generator on the device seeded by
+        (config.seed, iteration): a resumed run draws what the
+        uninterrupted one did."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.config.seed * 2 ** 32 + iteration)
+        return torch.randn(capacity, 3, generator=gen, device=self.device)
+
+    def _maybe_compact_state(self) -> None:
+        """Once the densify window closes the population no longer grows:
+        compact the pool once, if that saves at least a quarter of it."""
+        self._state_compacted = True
+        cap = self.state.gaussians.capacity
+        n = self.state.gaussians.num_alive()
+        new_cap = compact_capacity(n)
+        if new_cap > 0.75 * cap:
+            return
+        print(f"[compact] densify window closed: pool {cap} -> {new_cap} "
+              f"({n} alive)", flush=True)
+        self.state = compact_train_state(self.state, new_cap)
+
+    def train(self, iterations: Optional[int] = None,
+              log_fn: Optional[Callable] = None) -> Dict:
+        """Steps from `self.iteration` on, with the events of each step in
+        the JAX trainer's order: densify (or prune), opacity reset,
+        compaction, log, validation, checkpoint.  The camera of step i is
+        the i-th draw of default_rng(config.seed), as in the JAX trainer
+        for a run from step 0; a resumed run continues the sequence (the
+        JAX trainer restarts it).  The host reads the device only at
+        densify, prune, compaction, log and validation events."""
+        cfg = self.config
+        iterations = iterations or cfg.iterations
+        cams = list(self.train_cameras())
+        rng = np.random.default_rng(cfg.seed)
+        for _ in range(self.iteration):
+            rng.integers(len(cams))
+        metrics = {}
+        end = self.iteration + iterations
+        while self.iteration < end:
+            it = self.iteration + 1
+            cam_idx = int(rng.integers(len(cams)))
+            metrics = self.train_step(cams[cam_idx], cam_idx)
+            if density.should_densify(it, cfg):
+                # the canonical big-point prune starts after the first
+                # opacity reset
+                size_prune = 0 < cfg.opacity_reset_interval < it
+                cap = self.state.gaussians.capacity
+                self.state, dstats = densify_step(
+                    self.state, self._clone_noise(it, cap), self.scene_extent,
+                    cfg, size_prune)
+                metrics.update(dstats)
+                if dstats["n_alive"] > 0.85 * cap:
+                    self.state = grow_capacity(self.state, 2 * cap)
+            elif density.should_prune(it, cfg):
+                self.state, metrics["n_pruned"] = prune_step(self.state, cfg)
+            if (cfg.opacity_reset_interval > 0
+                    and it % cfg.opacity_reset_interval == 0
+                    and it <= cfg.densify_until_iter):
+                self.state = reset_opacity_step(self.state)
+            if (cfg.compact_after_densify and not self._state_compacted
+                    and 0 < cfg.densify_until_iter <= it):
+                self._maybe_compact_state()
+            if it % cfg.log_interval == 0:
+                self.train_losses.append(float(metrics["total_loss"]))
+                if log_fn:
+                    log_fn(it, {k: float(v) for k, v in metrics.items()})
+            if it % cfg.eval_interval == 0 and self.dataset is not None:
+                self.val_losses.append(self.validate().get("psnr", 0.0))
+            if it % cfg.save_interval == 0:
+                self.save_checkpoint(it)
+        return metrics
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def validate(self) -> Dict[str, float]:
+        """Mean PSNR and SSIM over the test split (each view rendered at
+        its own size), read back once for all views."""
+        cams = self.dataset.get_test_cameras() if self.dataset else []
+        if not cams:
+            return {}
+        psnrs, ssims = [], []
+        for cam in cams:
+            st = self.settings
+            if (cam.height != st.image_height or cam.width != st.image_width):
+                st = st.replace(image_height=cam.height, image_width=cam.width)
+            image = render(self.state.gaussians, cam, st)["image"]
+            psnrs.append(psnr(image, cam.image))
+            ssims.append(ssim(image, cam.image))
+        return {"psnr": float(np.mean(torch.stack(psnrs).tolist())),
+                "ssim": float(np.mean(torch.stack(ssims).tolist()))}
+
+    def save_checkpoint(self, iteration: int) -> None:
+        from .checkpoint import save_checkpoint
+        save_checkpoint(self.config.output_path, iteration, self.state,
+                        extra={"compacted": int(self._state_compacted)})
+
+    def load_checkpoint(self, iteration: int) -> None:
+        """Resume from the checkpoint of `iteration`, whatever its pool's
+        capacity: a pool smaller than this trainer's (compacted) or a run
+        that had already passed its compaction check is not compacted
+        again."""
+        from .checkpoint import load_checkpoint
+        state, extra = load_checkpoint(self.config.output_path, iteration,
+                                       self.device)
+        cap = self.state.gaussians.capacity if self.state else None
+        if cap is not None and state.gaussians.capacity < cap:
+            print(f"[load_checkpoint] compacted checkpoint: {cap} -> "
+                  f"{state.gaussians.capacity} slots", flush=True)
+            self._state_compacted = True
+        self._state_compacted |= bool(extra.get("compacted", 0))
+        self.state = state
+        self.iteration = state.step

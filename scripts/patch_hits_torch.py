@@ -4,10 +4,11 @@ Counts, for the flagship scene's bench view (100,000 Gaussians, SH 3,
 800x800, untrained; `chip_smoke.py`'s phase 4), over every instance of
 every tile's list: the half-extent in x of its footprint w >= 1e-5, and
 the share of patch x instance pairs that `raster_cuda.patch_missed` does
-not reject, for several patch shapes.  These are counts, not times: the
-script runs on the CPU by default (about half a minute).
+not reject, for several patch shapes.  These are counts, not times: it
+runs on the card by default, and `--device cpu` counts on the CPU (about
+half a minute).
 
-Usage: python3 scripts/patch_hits_torch.py [--device cuda] [--size 800]
+Usage: python3 scripts/patch_hits_torch.py [--device cuda|cpu] [--size 800]
 """
 
 import argparse
@@ -32,7 +33,7 @@ PATCHES = ((8, 4), (8, 8), (16, 8), (16, 16), (32, 1))
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda")
     p.add_argument("--size", type=int, default=800)
     args = p.parse_args(argv)
     dev = torch.device(args.device)
