@@ -17,12 +17,18 @@ ranks on the one card: the kernels' `t0` builds against their plain
 versions and as a chain against one single pass, a full-width ring render
 against the single-device render, ring gradients against single-device
 gradients, four full-width ring train steps, and both entry points with
---tile-shards 5 --ring.  Last, the trainer entry point: `main_torch.py`
+--tile-shards 5 --ring.  Then the trainer entry point: `main_torch.py`
 trains a COLMAP scene of that SH-3 scene (8 views at 800x800, 100,000
 points, written with the port's own COLMAP writers and PNG codec) with the
 rendering and pool of configs/sdf_tex_30k.yaml for 16 steps, resumes for
 4, and `scripts/evaluate_torch.py` and `scripts/export_ply_torch.py` run on
-its checkpoint.  Any failure raises; nothing falls back to the CPU.
+its checkpoint.  Then the texture scene: made on the card
+(`scripts/make_synthetic_scene_torch.py --texture`, 9 views at 800x800),
+exported (`scripts/export_colmap_scene_torch.py`) and trained by
+`main_torch.py` for 200 steps with three densify events.  Last, the
+training-quality gates of `scripts/train_path_parity_torch.py` at 256x256
+and 300 iterations (the tile kernels within 0.5 dB of the JAX record and
+of the golden route).  Any failure raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -502,19 +508,6 @@ def load_script(name: str):
     return mod
 
 
-def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
-    """The unit quaternion (w, x, y, z), w >= 0, of a rotation matrix."""
-    K = np.array([
-        [R[0, 0] - R[1, 1] - R[2, 2], 0, 0, 0],
-        [R[1, 0] + R[0, 1], R[1, 1] - R[0, 0] - R[2, 2], 0, 0],
-        [R[2, 0] + R[0, 2], R[2, 1] + R[1, 2], R[2, 2] - R[0, 0] - R[1, 1], 0],
-        [R[1, 2] - R[2, 1], R[2, 0] - R[0, 2], R[0, 1] - R[1, 0],
-         R[0, 0] + R[1, 1] + R[2, 2]]]) / 3.0
-    vals, vecs = np.linalg.eigh(K)
-    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
-    return q if q[0] >= 0 else -q
-
-
 def write_colmap_scene(root: Path, g, n_points: int, settings, n_views: int,
                        size: int) -> list:
     """A COLMAP scene of `g` on disk, written by the port's own writers and
@@ -537,6 +530,7 @@ def write_colmap_scene(root: Path, g, n_points: int, settings, n_views: int,
         str(sp / "cameras.bin"))
     cams = turntable_cameras(n_views, width=size, image_height=size,
                              device=g.device)
+    rotmat_to_qvec = load_script("export_colmap_scene_torch").rotmat_to_qvec
     imgs = {}
     for i, cam in enumerate(cams):
         R_wc = cam.R.cpu().double().numpy().T
@@ -776,8 +770,159 @@ def trainer_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
             "load_checkpoint"] + ex.times["load_checkpoint"]}
 
 
+def render_gate(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
+    """The renderer tolerance of data/synthetic.py (tests/
+    test_torch_synthetic.py): NaN at the same values, at most 5 % of the
+    others more than 1e-5 apart and at most 1 % more than 1e-3."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{name}: NaN at other values")
+    d = (got - want).abs()[~nan]
+    out = {"max": float(d.max()), "over_1e-5": int((d > 1e-5).sum()),
+           "over_1e-3": int((d > 1e-3).sum()), "values": d.numel()}
+    if out["over_1e-5"] > 0.05 * d.numel() or \
+            out["over_1e-3"] > 0.01 * d.numel():
+        raise AssertionError(f"{name}: the card and the CPU disagree {out}")
+    return out
+
+
+def texture_scene_phase(dev, workdir: Path, size: int = VIEW_SIZE,
+                        steps: int = 200) -> dict:
+    """Phase 14: the texture scene built and trained on the card.
+    data/synthetic.py renders a 32^2 view on the card and on the CPU (held
+    to the renderer tolerance); make_synthetic_scene_torch.py --texture
+    writes 8 train and 1 test views at `size`^2 with spp 2 and
+    points3d.ply; export_colmap_scene_torch.py turns them into a COLMAP
+    model; main_torch.py trains it for `steps` steps with
+    configs/sdf_tex_30k.yaml's rendering and pool, densify every 50 from 50
+    to 150 and the pool's compaction when the window closes, SH bands
+    unlocked every 50.  Raises on any check that fails."""
+    import main_torch
+    from mini3dgs_tpu_torch.config import ConfigManager
+    from mini3dgs_tpu_torch.data import synthetic
+    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+    from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
+
+    R, T = synthetic.camera_pose(0.3, 0.6, 3.6)
+    small = render_gate(synthetic.render_view(R, T, 32, 2, True, dev),
+                        synthetic.render_view(R, T, 32, 2, True, "cpu"),
+                        "texture view 32^2 card vs CPU")
+    view_bytes = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        synthetic.render_view(R, T, size, 2, True, dev)
+        view_bytes = torch.cuda.max_memory_allocated(dev) - base
+
+    scene, colmap_dir = workdir / "scene", workdir / "colmap"
+    gen = load_script("make_synthetic_scene_torch")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        gen.main(["--texture", "--out", str(scene), "--n-train", "8",
+                  "--n-test", "1", "--size", str(size), "--spp", "2",
+                  "--device", dev.type])
+        gen_s = time.perf_counter() - t0
+        gen.main(["--texture", "--points-only", "--out", str(scene)])
+        t0 = time.perf_counter()
+        load_script("export_colmap_scene_torch").main(
+            ["--src", str(scene), "--out", str(colmap_dir)])
+        export_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    view_s = [float(l.rsplit("(", 1)[1].split()[0])
+              for l in text.splitlines() if l.startswith("  t")]
+    if len(view_s) != 9 or "pose round-trip OK" not in text or \
+            len(list((colmap_dir / "images").iterdir())) != 9:
+        raise AssertionError(f"the texture scene was not written:\n{text}")
+
+    cfg = ConfigManager.load_from_yaml(str(REPO / "configs" /
+                                           "sdf_tex_30k.yaml"))
+    cfg = dataclasses.replace(
+        cfg, data_path=str(colmap_dir), output_path=str(workdir / "out"),
+        iterations=steps, log_interval=25, eval_interval=steps,
+        save_interval=steps, densify_from_iter=50, densify_interval=50,
+        densify_until_iter=150, sh_increase_interval=50, device=dev.type)
+    cfg_path = workdir / "config.yaml"
+    ConfigManager.save_to_yaml(cfg, str(cfg_path))
+    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    buf = io.StringIO()
+    with MethodTimes(GaussianTrainer, ["setup", "train_step"], dev) as mt, \
+            contextlib.redirect_stdout(buf):
+        code = main_torch.main(["--config", str(cfg_path)])
+    launches = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+    text = buf.getvalue()
+    tr = mt.objects[0]
+    log = parse_log(text)
+    final = [l for l in text.splitlines() if l.startswith("final: psnr=")]
+    compacts = [l for l in text.splitlines() if l.startswith("[compact]")]
+    n_test = len(tr.dataset.get_test_cameras())
+    its = sorted(log)
+    losses = [log[it]["total_loss"] for it in its]
+    events = {it: {k: int(log[it][k]) for k in ("n_clone", "n_split",
+                                                  "n_pruned", "n_alive")}
+              for it in its if "n_clone" in log[it]}
+    created = sum(e["n_clone"] + e["n_split"] for e in events.values())
+    if code != 0 or len(final) != 1 or its != list(range(25, steps + 1, 25)):
+        raise AssertionError(f"main_torch failed: rc {code}\n{text}")
+    if (len(tr.train_cameras()), n_test) != (7, 2):
+        raise AssertionError("the COLMAP split is not 7 train, 2 test views")
+    per = 1 if dev.type == "cuda" else 0  # a CPU rehearsal counts nothing
+    if launches != (per * (steps + 2 * n_test), per * steps):
+        raise AssertionError(f"{steps} steps and 2 validations of {n_test} "
+                             f"views launched the kernels {launches} times")
+    if sorted(events) != [50, 100, 150] or created <= 0 or \
+            len(compacts) != 1:
+        raise AssertionError(f"densify events {events}, {compacts}")
+    psnr_final = float(final[0].split("psnr=")[1].split()[0])
+    if not (np.isfinite(losses).all() and np.isfinite(psnr_final)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses}, final {final}")
+    return {"card_vs_cpu_32": small, "view_peak_bytes": view_bytes,
+            "generate_s": gen_s, "view_s": view_s, "export_s": export_s,
+            "setup_s": mt.times["setup"][0],
+            "step_ms_median": float(np.median(mt.times["train_step"])) * 1e3,
+            "launches": launches, "n_test": n_test, "losses": dict(
+                zip(its, losses)), "events": events, "created": created,
+            "compaction": compacts[0],
+            "n_alive": tr.state.gaussians.num_alive(), "psnr": psnr_final}
+
+
+def parity_phase(dev, size: int = 256, iters: int = 300) -> dict:
+    """Phase 15: scripts/train_path_parity_torch.py at `size`^2 and `iters`
+    iterations on the card: the `tiles` route (B1 / B2) within 0.5 dB of
+    the JAX record docs/artifacts/train_path_parity_jax_256.json (the
+    golden route of scripts/train_path_parity.py at this setting), and the
+    `golden` route within 0.5 dB of `tiles`.  The setting starts at its
+    optimum, so both runs are noise-driven walks: at 64^2 and 300
+    iterations the final PSNR of the tiles route differed by 5.1 dB
+    between two runs of the same code on the card (the gathers' backward
+    adds with float atomics), at 256^2 by 0.12 dB; hence 256^2 here.
+    Raises if a gate fails."""
+    mod = load_script("train_path_parity_torch")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = mod.main(["--size", str(size), "--iters", str(iters),
+                         "--device", dev.type, "--against",
+                         str(REPO / "docs" / "artifacts" /
+                             f"train_path_parity_jax_{size}.json")])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    tiles, golden = res["routes"]["tiles"], res["routes"]["golden"]
+    if code != 0 or not res["pass"] or set(res["gates_db"]) != {
+            "tiles_vs_jax", "tiles_vs_golden"}:
+        raise AssertionError(f"train-path parity failed: {res}")
+    per = 1 if dev.type == "cuda" else 0  # a CPU rehearsal counts nothing
+    if (tiles["launches_fwd"], tiles["launches_bwd"]) != (
+            per * (iters + 1), per * iters) \
+            or (golden["launches_fwd"], golden["launches_bwd"]) != (0, 0):
+        raise AssertionError(f"parity routes launched {res['routes']}")
+    return res
+
+
 def main() -> int:
     # ---- 1. device ----------------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
@@ -1631,13 +1776,46 @@ def main() -> int:
           f"; load s {' '.join(f'{t:.3f}' for t in tr13['load_s'])} | {smi}",
           flush=True)
 
-    # ---- 14. result ---------------------------------------------------
+    # ---- 14. the texture scene built and trained on the card ----------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        tx = texture_scene_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[14 texture scene] data/synthetic.py 32^2 view, card vs CPU: "
+          f"{json.dumps(tx['card_vs_cpu_32'])}; one {VIEW_SIZE}^2 spp-2 "
+          f"view's peak device memory {tx['view_peak_bytes'] / 2**20:.1f} "
+          f"MiB\n  make_synthetic_scene_torch.py --texture: 9 views at "
+          f"{VIEW_SIZE}^2 spp 2 in {tx['generate_s']:.2f} s (per view "
+          f"{' '.join(f'{s:.3f}' for s in tx['view_s'])} s); "
+          f"export_colmap_scene_torch.py {tx['export_s']:.2f} s\n"
+          f"  main_torch.py, 200 steps, 7 train + {tx['n_test']} test views: "
+          f"launches fwd/bwd {tx['launches']}, densify {json.dumps(tx['events'])}"
+          f" ({tx['created']} created), {tx['compaction']}, n_alive "
+          f"{tx['n_alive']}, losses {json.dumps(tx['losses'])}, final PSNR "
+          f"{tx['psnr']:.2f}; setup {tx['setup_s']:.2f} s, trainer step ms "
+          f"median {tx['step_ms_median']:.2f} | {smi}", flush=True)
+
+    # ---- 15. train-path parity on the card ----------------------------
+    pp = parity_phase(dev)
+    print(f"[15 train-path parity] 256^2, 300 iterations: tiles "
+          f"{json.dumps(pp['routes']['tiles'])}, golden "
+          f"{json.dumps(pp['routes']['golden'])}, JAX record PSNR "
+          f"{pp['jax_record']['psnr']:.4f}; gates dB "
+          f"{json.dumps(pp['gates_db'])} (each <= {pp['gate_db']}) | {smi}",
+          flush=True)
+    print(f"chip_smoke: phases 1-15 passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # ---- result -------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "raster_fwd", "route": "cuda",
          "source": "mini3dgs_tpu_torch/csrc/raster_fwd.cu",
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:288",
          "launches": train_launches[0], "launches_render": render_launches,
          "launches_trainer": tr13["launches"][0],
+         "launches_texture_scene": tx["launches"][0],
+         "launches_parity_tiles": pp["routes"]["tiles"]["launches_fwd"],
          "max_abs_err": max(fwd_err, fwd_patch_err),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
@@ -1646,6 +1824,8 @@ def main() -> int:
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:377",
          "launches": train_launches[1],
          "launches_trainer": tr13["launches"][1],
+         "launches_texture_scene": tx["launches"][1],
+         "launches_parity_tiles": pp["routes"]["tiles"]["launches_bwd"],
          "max_abs_err": max(bwd_err, patch_err),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},

@@ -37,6 +37,38 @@ def build_world_view_matrix(R, T, from_c2w: bool = True) -> torch.Tensor:
     return torch.from_numpy(view)
 
 
+def build_projection_matrix_v1(znear: float, zfar: float, fovX,
+                               fovY) -> torch.Tensor:
+    """OpenGL-style perspective matrix from the two FoVs (floats or float32
+    scalar tensors; the matrix is on the FoVs' device)."""
+    fovX = torch.as_tensor(fovX, dtype=torch.float32)
+    fovY = torch.as_tensor(fovY, dtype=torch.float32, device=fovX.device)
+    tx, ty = torch.tan(fovX * 0.5), torch.tan(fovY * 0.5)
+    A = 1.0 / torch.where(tx.abs() < 1e-6, 1e-6, tx)
+    B = 1.0 / torch.where(ty.abs() < 1e-6, 1e-6, ty)
+    P = torch.zeros(4, 4, dtype=torch.float32, device=fovX.device)
+    P[0, 0], P[1, 1] = A, B
+    P[2, 2] = -(zfar + znear) / (zfar - znear)
+    P[2, 3] = -(2.0 * zfar * znear) / (zfar - znear)
+    P[3, 2] = -1.0
+    return P
+
+
+def build_projection_matrix_v2(znear: float, zfar: float, fovX: float,
+                               fovY: float, width: int,
+                               height: int) -> torch.Tensor:
+    """The focal-length form of the same matrix (equal to v1)."""
+    focal_x = (width / 2.0) / math.tan(float(fovX) / 2.0)
+    focal_y = (height / 2.0) / math.tan(float(fovY) / 2.0)
+    P = torch.zeros(4, 4, dtype=torch.float32)
+    P[0, 0] = 2.0 * focal_x / width
+    P[1, 1] = 2.0 * focal_y / height
+    P[2, 2] = -(zfar + znear) / (zfar - znear)
+    P[2, 3] = -2.0 * zfar * znear / (zfar - znear)
+    P[3, 2] = -1.0
+    return P
+
+
 def focal_from_fov(fov, pixels: int) -> torch.Tensor:
     """f = 0.5 * pixels / tan(fov/2), in float32."""
     fov = torch.as_tensor(fov, dtype=torch.float32)
@@ -94,6 +126,19 @@ class Camera:
                    zfar=float(zfar))
 
     @property
+    def world_view_transform(self) -> torch.Tensor:
+        return self.view_matrix
+
+    @property
+    def projection_matrix(self) -> torch.Tensor:
+        return build_projection_matrix_v1(self.znear, self.zfar, self.FoVx,
+                                          self.FoVy)
+
+    @property
+    def full_proj_transform(self) -> torch.Tensor:
+        return self.projection_matrix @ self.view_matrix
+
+    @property
     def camera_center(self) -> torch.Tensor:
         """Camera position in the world frame, recovered from the view
         matrix."""
@@ -108,3 +153,23 @@ class Camera:
     @property
     def fy(self) -> torch.Tensor:
         return focal_from_fov(self.FoVy, self.height)
+
+
+def project_points(points_3d: torch.Tensor, camera: Camera) -> torch.Tensor:
+    """[N,3] world points -> [N,2] pixel coordinates, with the renderer's
+    pinhole convention: x = fx X/Z + W/2, y = -fy Y/Z + H/2 (y down)."""
+    V = camera.view_matrix
+    Xc = points_3d @ V[:3, :3].T + V[:3, 3]
+    X, Y, Z = Xc[:, 0], Xc[:, 1], Xc[:, 2]
+    x = camera.fx * X / Z + 0.5 * camera.width
+    y = -camera.fy * Y / Z + 0.5 * camera.height
+    return torch.stack([x, y], dim=-1)
+
+
+def project_points_ndc(points_3d: torch.Tensor,
+                       camera: Camera) -> torch.Tensor:
+    """[N,3] world points -> [N,3] NDC through the full 4x4 chain."""
+    ones = torch.ones(points_3d.shape[0], 1, dtype=points_3d.dtype,
+                      device=points_3d.device)
+    clip = torch.cat([points_3d, ones], dim=-1) @ camera.full_proj_transform.T
+    return clip[:, :3] / clip[:, 3:4]

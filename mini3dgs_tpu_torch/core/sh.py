@@ -18,6 +18,10 @@ C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       -0.5900435899266435)
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh(degree: int, coeffs: torch.Tensor,
             dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate SH of `degree` (0..3).  coeffs: [..., K, 3] with
@@ -59,3 +63,8 @@ def sh_to_rgb(degree: int, coeffs: torch.Tensor,
               dirs: torch.Tensor) -> torch.Tensor:
     """Canonical 3DGS color decode: clamp(eval_sh + 0.5, min=0)."""
     return torch.clamp(eval_sh(degree, coeffs, dirs) + 0.5, min=0.0)
+
+
+def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:
+    """Inverse of the DC term of sh_to_rgb (for point-cloud colour init)."""
+    return (rgb - 0.5) / C0

@@ -34,7 +34,7 @@ from ..core.gaussians import (Gaussians, compact, compact_capacity,
                               create_from_pcd, empty_gaussians, reset_opacity,
                               scene_extent_of)
 from ..core.loss import gaussian_loss, ssim
-from ..core.sh import C0
+from ..core.sh import rgb_to_sh_dc
 from ..data.dataset import load_dataset
 from ..ops.renderer import RenderSettings, render
 from ..utils.metrics import psnr
@@ -307,7 +307,7 @@ class GaussianTrainer:
             if cfg.color_mode == "sh" and colors is not None:
                 # SH decode is rgb = C0*dc + 0.5 (core/sh.py); invert the DC
                 # term so the initial render reproduces the cloud's colours
-                colors = (np.asarray(colors, np.float32) - 0.5) / C0
+                colors = rgb_to_sh_dc(np.asarray(colors, np.float32))
             cap = max(cfg.capacity,
                       1 << int(np.ceil(np.log2(max(len(points), 2)))))
             gaussians = create_from_pcd(points, colors, capacity=cap,

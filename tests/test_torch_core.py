@@ -21,6 +21,7 @@ from mini3dgs_tpu.core import transforms as jtf
 from mini3dgs_tpu.utils import metrics as jmetrics
 from mini3dgs_tpu.utils import vis as jvis
 from mini3dgs_tpu_torch import convert
+from mini3dgs_tpu_torch.core import camera as tcam
 from mini3dgs_tpu_torch.core import sh as tsh
 from mini3dgs_tpu_torch.core import transforms as ttf
 from mini3dgs_tpu_torch.utils import metrics as tmetrics
@@ -155,3 +156,94 @@ def test_metrics_match_jax():
         np.testing.assert_allclose(
             float(tf(torch.from_numpy(a), torch.from_numpy(b))),
             float(jf(jnp.asarray(a), jnp.asarray(b))), rtol=1e-6)
+
+
+# ---- the reference-parity API: SH helpers, covariance chain, projection
+# matrices and point projection.  Tolerance rtol 1e-5, atol 1e-6 (float32
+# matrix products whose sums both sides may order differently).
+CORE_RTOL, CORE_ATOL = 1e-5, 1e-6
+PROJ_CASES = [
+    (math.radians(60), math.radians(60), 640, 480),
+    (math.radians(90), math.radians(70), 800, 800),
+    (math.radians(35), math.radians(45), 1024, 768),
+]
+
+
+def test_sh_helpers_match_jax():
+    for d in range(4):
+        assert tsh.num_sh_coeffs(d) == jsh.num_sh_coeffs(d) == (d + 1) ** 2
+    rgb = np.random.default_rng(5).random((64, 3)).astype(np.float32)
+    np.testing.assert_allclose(t2n(tsh.rgb_to_sh_dc(torch.from_numpy(rgb))),
+                               np.asarray(jsh.rgb_to_sh_dc(jnp.asarray(rgb))),
+                               CORE_RTOL, CORE_ATOL)
+
+
+def test_covariance_chain_matches_jax():
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((64, 4)).astype(np.float32)
+    s = rng.uniform(0.01, 0.5, (64, 3)).astype(np.float32)
+    view = np.linalg.qr(rng.standard_normal((3, 3)))[0].astype(np.float32)
+    J = rng.normal(0, 2.0, (64, 2, 3)).astype(np.float32)
+    R = ttf.quat_to_rotmat(torch.from_numpy(q))
+    np.testing.assert_allclose(t2n(R), np.asarray(jtf.quat_to_rotmat(
+        jnp.asarray(q))), CORE_RTOL, CORE_ATOL)
+    np.testing.assert_allclose(t2n(R @ R.transpose(-1, -2)),
+                               np.broadcast_to(np.eye(3), (64, 3, 3)),
+                               atol=1e-5)
+    cov = ttf.build_covariance_3d(torch.from_numpy(s), torch.from_numpy(q))
+    jcov = jtf.build_covariance_3d(jnp.asarray(s), jnp.asarray(q))
+    np.testing.assert_allclose(t2n(cov), np.asarray(jcov), CORE_RTOL,
+                               CORE_ATOL)
+    cov2 = ttf.project_covariance_2d(cov, torch.from_numpy(view),
+                                     torch.from_numpy(J))
+    jcov2 = jtf.project_covariance_2d(jcov, jnp.asarray(view), jnp.asarray(J))
+    assert cov2.shape == (64, 2, 2)
+    np.testing.assert_allclose(t2n(cov2), np.asarray(jcov2), CORE_RTOL,
+                               CORE_ATOL)
+
+
+@pytest.mark.parametrize("fovx,fovy,w,h", PROJ_CASES)
+def test_projection_matrices_match_jax(fovx, fovy, w, h):
+    P1 = tcam.build_projection_matrix_v1(0.1, 1000.0, fovx, fovy)
+    P2 = tcam.build_projection_matrix_v2(0.1, 1000.0, fovx, fovy, w, h)
+    np.testing.assert_allclose(t2n(P1), np.asarray(
+        jcam.build_projection_matrix_v1(0.1, 1000.0, fovx, fovy)),
+        CORE_RTOL, CORE_ATOL)
+    np.testing.assert_allclose(t2n(P2), np.asarray(
+        jcam.build_projection_matrix_v2(0.1, 1000.0, fovx, fovy, w, h)),
+        CORE_RTOL, CORE_ATOL)
+    # the two forms agree, as tests/test_camera.py checks for JAX's
+    np.testing.assert_allclose(t2n(P1), t2n(P2), atol=1e-6)
+
+
+@pytest.mark.parametrize("fovx,fovy,w,h", PROJ_CASES)
+def test_camera_projection_matches_jax(fovx, fovy, w, h):
+    """The accessors and point projection against JAX's on a rotated,
+    translated camera; NDC through v1 (the camera's) against v2."""
+    rng = np.random.default_rng(w)
+    R = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    R *= np.sign(np.linalg.det(R))
+    T = rng.normal(0, 1, 3)
+    jc = jcam.Camera.create(0, R, T, fovx, fovy, width=w, height=h)
+    tc = convert.camera_from_numpy(R, T, fovx, fovy, w, h)
+    for name in ("world_view_transform", "projection_matrix",
+                 "full_proj_transform"):
+        np.testing.assert_allclose(t2n(getattr(tc, name)),
+                                   np.asarray(getattr(jc, name)),
+                                   CORE_RTOL, CORE_ATOL, err_msg=name)
+    # points in front of the camera: the centre plus depth along +z
+    local = np.concatenate([rng.uniform(-0.5, 0.5, (32, 2)),
+                            rng.uniform(1.0, 8.0, (32, 1))], axis=1)
+    pts = (local @ R.T + T).astype(np.float32)
+    xy = tcam.project_points(torch.from_numpy(pts), tc)
+    np.testing.assert_allclose(t2n(xy), np.asarray(jcam.project_points(
+        jnp.asarray(pts), jc)), CORE_RTOL, CORE_ATOL)
+    ndc = tcam.project_points_ndc(torch.from_numpy(pts), tc)
+    np.testing.assert_allclose(t2n(ndc), np.asarray(jcam.project_points_ndc(
+        jnp.asarray(pts), jc)), CORE_RTOL, CORE_ATOL)
+    assert np.isfinite(t2n(ndc)).all()
+    P2 = tcam.build_projection_matrix_v2(tc.znear, tc.zfar, fovx, fovy, w, h)
+    homo = torch.cat([torch.from_numpy(pts), torch.ones(32, 1)], dim=-1)
+    clip2 = homo @ (P2 @ tc.view_matrix).T
+    np.testing.assert_allclose(t2n(ndc), t2n(clip2[:, :3] / clip2[:, 3:4]),
+                               atol=1e-6)

@@ -83,7 +83,15 @@ def _module_imports(path: Path):
             yield node.module
 
 
+# The JAX-side scripts the port copies what it needs from (the port keeps
+# its own copy: scripts/*_torch.py and mini3dgs_tpu_torch/data/synthetic.py).
+JAX_SIDE_SCRIPTS = ("make_synthetic_scene", "export_colmap_scene",
+                    "preprocess", "train_path_parity")
+
+
 def test_port_imports_no_jax():
+    """No port file imports JAX, the JAX package, the packages the GPU host
+    lacks (Pillow, PyYAML, plyfile), or a JAX-side script it copies."""
     files = sorted((REPO / "mini3dgs_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "scripts").glob("*_torch.py"))
     files += [REPO / "chip_smoke.py"]
@@ -92,7 +100,12 @@ def test_port_imports_no_jax():
         for name in _module_imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax",
-                                "mini3dgs_tpu"), f"{path} imports {name}"
+                                "mini3dgs_tpu", "PIL", "yaml", "plyfile"), \
+                f"{path} imports {name}"
+            parts = name.split(".")
+            assert not (parts[-1] in JAX_SIDE_SCRIPTS
+                        and parts[:-1] in ([], ["scripts"])), \
+                f"{path} imports the JAX-side script {name}"
 
 
 def _entry_args(tmp_path, device):
