@@ -28,7 +28,19 @@ exported (`scripts/export_colmap_scene_torch.py`) and trained by
 `main_torch.py` for 200 steps with three densify events.  Last, the
 training-quality gates of `scripts/train_path_parity_torch.py` at 256x256
 and 300 iterations (the tile kernels within 0.5 dB of the JAX record and
-of the golden route).  Any failure raises; nothing falls back to the CPU.
+of the golden route).  Then the trainer over a (data, tile) mesh with four
+ranks on the card at tile 16: one gauss-sharded step against one
+replicated step with two cameras, the setup's gradient self-check in both
+layouts, and `main_torch.py` on that COLMAP scene over a (2, 2) mesh with
+the pool split over the ranks (16 steps, a densify event and the
+compaction, the mesh's validation image against one device's, the
+checkpoint's bitwise reload, a resume), then over a (1, 2) mesh through the
+ring (8 steps); after each run the kernels of its route are held against
+their plain versions on its own tile-16 launches (a band's tile rows, the
+ring step's (band, range) launches).  Last, `scripts/train_1m_torch.py` (1M Gaussians, a 2^20
+pool, 800x800, on a Blender scene made here; B1 and B2 held against their
+plain versions on its stream) and `scripts/train_probe_torch.py` (256x256,
+300 steps).  Any failure raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -143,6 +155,9 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
     return float(np.median(times))
 
 
+ROWS_REL_L2 = 1e-4   # gate_rows' bound on each row's rel-L2
+
+
 def gate_rows(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
     """Gate the backward kernel's gradient [10, n] against the plain
     version's, row by row, each normalised by the plain row's largest
@@ -158,7 +173,7 @@ def gate_rows(got: torch.Tensor, want: torch.Tensor, name: str) -> float:
     l2 = (g - w).norm(dim=1) / w.norm(dim=1).clamp(min=1e-30)
     big = int((d > 1e-3).sum())
     worst, worst_l2 = float(d.max()), float(l2.max())
-    ok = (worst_l2 < 1e-4 and big <= max(8, d.numel() // 100_000)
+    ok = (worst_l2 < ROWS_REL_L2 and big <= max(8, d.numel() // 100_000)
           and worst < 2e-2)
     print(f"    {name:22s} rows max={worst:.3e} rel-L2={worst_l2:.3e} "
           f">1e-3: {big}/{d.numel()} {'ok' if ok else 'FAIL'}")
@@ -497,6 +512,88 @@ def ring_step_launches(rc, proj, target, n_rk: int, ts: int, size: int):
             _, g5 = rc.raster_bwd(*segs[b, r], tiles_x, ts, acc_seg[b, r],
                                   g_in[b, r], t0=t_in[b, r], tile0=b * ntb)
     return segs, t_in, acc_seg, g_in, g_acc
+
+
+def gate_ring_step(rc, segs, t_in, acc_seg, g_in, tiles_x: int, ts: int,
+                   ntb: int, tag: str = "") -> tuple:
+    """The launches of one ring step (from `ring_step_launches`, bands of
+    `ntb` tiles) against their plain versions.  Each B3 launch within
+    `gate_acc`, its depth on the scale of its segment's deepest instance;
+    each B4 launch's d_t0 within `gate_rows` (kernel and plain version read
+    the same accumulators and the same cotangent, so d_t0 has no cliff);
+    the instance rows of all launches side by side, each row on the scale
+    of the step's largest entry (behind a small transmittance a launch's
+    own rows are small, and one early-stop flip would outweigh them).  An
+    empty segment must add nothing and hand its transmittance on.  Returns
+    the largest errors of (B3, B4)."""
+    from mini3dgs_tpu_torch.ops.binning import ROW_DEPTH
+    err3 = err4 = 0.0
+    d_kernel, d_plain = [], []
+    for (b, r), seg in segs.items():
+        fargs = (*seg, tiles_x, ts)
+        kw = dict(t0=t_in[b, r], tile0=b * ntb)
+        name = f"{tag}band{b} range{r}"
+        if not seg[0].shape[1]:
+            if bool((acc_seg[b, r][:, :5] != 0).any()) \
+                    or not torch.equal(acc_seg[b, r][:, 5:6], t_in[b, r]):
+                raise AssertionError(f"{name}: an empty segment changed the "
+                                     "accumulators")
+            continue
+        err3 = max(err3, gate_acc(
+            acc_seg[b, r], rc.raster_fwd_plain(*fargs, **kw), name,
+            has_t0=True, depth_scale=float(seg[0][ROW_DEPTH].max())))
+        bargs = (*fargs, acc_seg[b, r], g_in[b, r])
+        d_k, dt0_k = rc.raster_bwd(*bargs, **kw)
+        d_p, dt0_p = rc.raster_bwd_plain(*bargs, **kw)
+        d_kernel.append(d_k)
+        d_plain.append(d_p)
+        err4 = max(err4, gate_rows(dt0_k.reshape(1, -1),
+                                   dt0_p.reshape(1, -1), name + " d_t0"))
+    err4 = max(err4, gate_rows(torch.cat(d_kernel, 1),
+                               torch.cat(d_plain, 1), f"{tag}all launches"))
+    return err3, err4
+
+
+def mesh_kernel_gates(rc, tr, cam, size: int, ring: bool) -> dict:
+    """Phase 16 (c) and (d): the kernels at the mesh run's own shapes, on
+    the trained state's stream of `cam` at tile 16, against their plain
+    versions.  Without `ring`: the last band's tile rows of the whole
+    image's stream (`tile0` its first tile), as `_render_bands` launches
+    them: B1 within `gate_acc`, B2 within `gate_rows` under a seeded
+    cotangent.  With `ring`: every launch of one ring step over the mesh's
+    tile axis (`ring_step_launches`, the loss's own cotangent towards
+    `cam.image`), within `gate_ring_step`.  Returns the largest errors,
+    the instances the kernels took and, on the card, their ms."""
+    ts, n = MESH_TILE_SIZE, tr.mesh.tile
+    tiles_x = size // ts
+    ntb = size // ts // n * tiles_x
+    proj = project_with(tr.gathered_state().gaussians, cam, tr.settings)
+    if ring:
+        segs, t_in, acc_seg, g_in, _ = ring_step_launches(
+            rc, proj, cam.image, n, ts, size)
+        err3, err4 = gate_ring_step(rc, segs, t_in, acc_seg, g_in, tiles_x,
+                                    ts, ntb, tag=f"tile{ts} ")
+        return {"fwd_t0_err": err3, "bwd_t0_err": err4, "launches": len(segs),
+                "instances": sum(seg[0].shape[1] for seg in segs.values())}
+    b, stream = rc.tile_stream(proj, size, size, ts)
+    lo = (n - 1) * ntb
+    fargs = (stream, b.tile_start[lo:lo + ntb], b.tile_count[lo:lo + ntb],
+             tiles_x, ts)
+    kw = dict(tile0=lo)
+    name = f"tile{ts} band{n - 1}"
+    acc = rc.raster_fwd(*fargs, **kw)
+    fwd_err = gate_acc(acc, rc.raster_fwd_plain(*fargs, **kw), name)
+    bargs = (*fargs, acc, seeded_gout(acc, 1616))
+    bwd_err = gate_rows(rc.raster_bwd(*bargs, **kw),
+                        rc.raster_bwd_plain(*bargs, **kw), name)
+    res = {"fwd_err": fwd_err, "bwd_err": bwd_err, "tile0": lo,
+           "instances": int(b.tile_count[lo:lo + ntb].sum()),
+           "stream": b.n_live, "heaviest": int(b.tile_count[lo:lo + ntb].max())}
+    if stream.is_cuda:
+        res["ms"] = (
+            cuda_ms(lambda: rc.raster_fwd(*fargs, **kw, ranges_checked=True)),
+            cuda_ms(lambda: rc.raster_bwd(*bargs, **kw, ranges_checked=True)))
+    return res
 
 
 def load_script(name: str):
@@ -920,6 +1017,402 @@ def parity_phase(dev, size: int = 256, iters: int = 300) -> dict:
     return res
 
 
+MESH_TILE_SIZE = 16   # 800 / 16 = 50 tile rows: 2 bands of 25
+BAND_ROWS = 5         # phase 17: B2 held to float64 on 5 tile rows
+PRECISION_SLACK = 1.1
+
+
+def mesh_step_phase(dev, g, cams, settings, extent: float) -> dict:
+    """Phase 16 (a) and (b): one gauss-sharded step against one replicated
+    step from the same state (the flagship set `g`, two single-device steps
+    into training) over a (2, 2) mesh of 4 ranks on the card, with the two
+    distinct cameras `cams`, at the tolerances of the JAX package's own
+    test (tests/test_sharding.py): loss rtol 1e-5, xyz atol 2e-5, opacity
+    atol 3e-3, xyz_gradient_accum atol 1e-6 / rtol 1e-4 on the slots whose
+    visibility under their owner's camera is camera 0's (the gauss-sharded
+    step counts each rank's rows under its own data camera, the replicated
+    one under camera 0); then `verify_shard_grad_parity` for both layouts.
+    Raises on any check that fails."""
+    from mini3dgs_tpu_torch.config import TrainingConfig
+    from mini3dgs_tpu_torch.parallel import sharded
+    from mini3dgs_tpu_torch.parallel.mesh import make_mesh
+    from mini3dgs_tpu_torch.train import trainer
+
+    mesh = make_mesh(2, 2, [dev] if dev.type == "cpu" else None)
+    config = trainer.scale_position_lr(TrainingConfig(
+        image_height=VIEW_SIZE, image_width=VIEW_SIZE,
+        background_color=[1.0, 1.0, 1.0], tile_size=MESH_TILE_SIZE,
+        color_mode="sh", sh_degree=3, capacity=g.capacity, mesh_data=2,
+        mesh_tile=2), extent)
+    state = trainer.create_train_state(g, config)
+    for cam in cams:
+        state, _ = trainer.train_step(state, cam, config, settings)
+    torch.cuda.synchronize()
+    step_ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    rep, m_rep = timed("replicated", lambda: sharded.make_sharded_train_step(
+        config, settings, mesh)(state, cams))
+    split = sharded.shard_train_state(state, mesh)
+    gs, m_gs = timed("gauss_sharded",
+                     lambda: sharded.make_gauss_sharded_train_step(
+                         config, settings, mesh)(split, cams))
+    got = sharded.gather_train_state(gs, mesh)
+    a, b = got.gaussians, rep.gaussians
+    vis = [project_with(state.gaussians, c, settings).visible
+           for c in cams]
+    owner = torch.zeros(g.capacity, dtype=torch.long, device=dev)
+    Cs = g.capacity // 4
+    for r in range(4):
+        blk = sharded.gauss_block(mesh, r)
+        owner[blk * Cs:(blk + 1) * Cs] = r // mesh.tile
+    vis_own = torch.where(owner == 0, vis[0], vis[1])
+    same = vis_own == vis[0]
+    loss_rel = abs(float(m_gs["total_loss"]) / float(m_rep["total_loss"]) - 1)
+    dev_xyz = float((a.xyz - b.xyz).abs().max())
+    dev_op = float((a.opacity - b.opacity).abs().max())
+    acc_a, acc_b = a.xyz_gradient_accum[same], b.xyz_gradient_accum[same]
+    acc_ok = bool(((acc_a - acc_b).abs() <= 1e-6 + 1e-4 * acc_b.abs()).all())
+    dev_acc = float((acc_a - acc_b).abs().max())
+    denom_ok = torch.equal(a.denom - state.gaussians.denom, vis_own.float()) \
+        and torch.equal(b.denom - state.gaussians.denom, vis[0].float())
+    shards_ok = all(s.gaussians.capacity == Cs for s in gs.shards)
+    print(f"[16a gauss-sharded vs replicated step] (2, 2) mesh, 4 ranks on "
+          f"the card, {VIEW_SIZE}^2 tile {MESH_TILE_SIZE}, SH 3, "
+          f"{g.num_alive()} Gaussians (pool {g.capacity}, {Cs} a rank), two "
+          f"cameras: loss rel {loss_rel:.2e}, xyz {dev_xyz:.2e}, opacity "
+          f"{dev_op:.2e}, xyz_gradient_accum {dev_acc:.2e} on "
+          f"{int(same.sum())} slots of equal visibility "
+          f"({int((~same).sum())} counted under the other camera), "
+          f"denom by each rule {'exact' if denom_ok else 'WRONG'}; step ms "
+          f"replicated {step_ms['replicated']:.1f} gauss-sharded "
+          f"{step_ms['gauss_sharded']:.1f}", flush=True)
+    if not (loss_rel < 1e-5 and dev_xyz < 2e-5 and dev_op < 3e-3 and acc_ok
+            and denom_ok and shards_ok and int((~same).sum()) > 0):
+        raise AssertionError("the gauss-sharded step disagrees with the "
+                             "replicated step")
+    worst = {layout: sharded.verify_shard_grad_parity(
+        config, mesh, gauss_sharded=layout == "gauss_sharded")
+        for layout in ("replicated", "gauss_sharded")}
+    print(f"[16b verify_shard_grad_parity] (2, 2) mesh on the card, worst "
+          f"normalised deviation {json.dumps(worst)} (tol 0.05)", flush=True)
+    return {"loss_rel": loss_rel, "xyz": dev_xyz, "opacity": dev_op,
+            "accum": dev_acc, "step_ms": step_ms, "verify": worst}
+
+
+def project_with(g, cam, settings):
+    from mini3dgs_tpu_torch.ops.projection import project_gaussians
+    return project_gaussians(g, cam, color_mode=settings.color_mode,
+                             sh_degree=settings.sh_degree)
+
+
+def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
+                     ring: bool) -> dict:
+    """Phase 16 (c), and with `ring` (d): `main_torch.main` trains a COLMAP
+    scene of `g` (written as phase 13 writes it) with
+    configs/sdf_tex_30k.yaml's rendering and pool at tile 16 over a mesh
+    with `shard_gauss_state`: (2, 2) for 16 steps, or with
+    `ring_exchange` (1, 2) for 8 steps; densify, opacity reset and the
+    compaction at 8, prunes at 6 (and 12), SH unlocked every 4.  Gates: the
+    launches of each kernel build; a densify event and one compaction to a
+    multiple of the ranks; the loss falls over each stretch no event
+    interrupts; the mesh `validate` image equals the single-device render
+    of the gathered state (the forward gate); the kernels of the run's
+    route hold against their plain versions on its tile-16 launches of the
+    trained state (`mesh_kernel_gates`); the checkpoint the run wrote
+    loads bit for bit and splits again shard for shard; and (without
+    `ring`) `--resume` runs on.  Raises on any check that fails."""
+    import main_torch
+    from mini3dgs_tpu_torch.config import ConfigManager
+    from mini3dgs_tpu_torch.core.gaussians import compact_capacity
+    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+    from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render
+    from mini3dgs_tpu_torch.parallel import sharded
+    from mini3dgs_tpu_torch.train import checkpoint as ckpt
+    from mini3dgs_tpu_torch.train import density
+    from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
+
+    cfg = ConfigManager.load_from_yaml(str(REPO / "configs" /
+                                           "sdf_tex_30k.yaml"))
+    settings = RenderSettings(image_height=size, image_width=size,
+                              bg_color=tuple(cfg.background_color),
+                              tile_size=cfg.tile_size, color_mode="sh",
+                              sh_degree=cfg.sh_degree)
+    scene, out = workdir / "scene", workdir / "out"
+    if not scene.exists():
+        write_colmap_scene(scene, g, n_points, settings, 8, size)
+    steps = 8 if ring else 16
+    n_data, n_tile = (1, 2) if ring else (2, 2)
+    cfg = dataclasses.replace(
+        cfg, data_path=str(scene), output_path=str(out), image_height=size,
+        image_width=size, tile_size=MESH_TILE_SIZE, iterations=steps,
+        log_interval=4, eval_interval=steps, save_interval=8,
+        densify_from_iter=8, densify_interval=4, densify_until_iter=8,
+        prune_interval=6, opacity_reset_interval=8, sh_increase_interval=4,
+        mesh_data=n_data, mesh_tile=n_tile, shard_gauss_state=True,
+        ring_exchange=ring, device=dev.type)
+    if out.exists():
+        shutil.rmtree(out)
+    cfg_path = workdir / "mesh_config.yaml"
+    ConfigManager.save_to_yaml(cfg, str(cfg_path))
+    if ConfigManager.load_from_yaml(str(cfg_path)) != cfg:
+        raise AssertionError("the written config does not read back")
+
+    def entry(argv):
+        for f in (rc.raster_fwd, rc.raster_bwd):
+            f.launches = f.launches_t0 = 0
+        buf = io.StringIO()
+        names = ["setup", "train_step"]
+        with MethodTimes(GaussianTrainer, names, dev) as mt, \
+                contextlib.redirect_stdout(buf):
+            code = main_torch.main(argv)
+        mt.launches = (rc.raster_fwd.launches, rc.raster_bwd.launches,
+                       rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+        return code, buf.getvalue(), mt
+
+    base = ["--config", str(cfg_path)]
+    code, text, run = entry(base)
+    tr = run.objects[0]
+    log = parse_log(text)
+    final = [l for l in text.splitlines() if l.startswith("final: psnr=")]
+    compacts = [l for l in text.splitlines() if l.startswith("[compact]")]
+    if code != 0 or len(final) != 1 or sorted(log) != list(
+            range(4, steps + 1, 4)):
+        raise AssertionError(f"main_torch over a mesh failed: rc {code}\n"
+                             f"{text}")
+    n_dev = n_data * n_tile
+    if not isinstance(tr.state, sharded.GaussShardedState) or \
+            len(tr.state.shards) != n_dev:
+        raise AssertionError("the trainer's state is not split over the mesh")
+    if not any(log[it].get("n_split", 0) + log[it].get("n_clone", 0) > 0
+               for it in log):
+        raise AssertionError(f"no densify event split or cloned: {log}")
+    alive_at = int(compacts[0].split("(")[1].split()[0]) if compacts else 0
+    pool = tr.state.capacity
+    want_pool = -(-compact_capacity(alive_at) // n_dev) * n_dev
+    if len(compacts) != 1 or pool != want_pool or pool % n_dev:
+        raise AssertionError(f"compaction: {compacts}, pool {pool}")
+    n_test = len(tr.dataset.get_test_cameras())
+    # The setup's self-check: one render and one step of the tiny case, each
+    # band of each camera one launch of the builds without t0.
+    verify = 1 + n_dev
+    per_view = n_tile * n_tile if ring else n_tile
+    per_step = n_data * n_tile * (n_tile if ring else 1)
+    evals = per_view * 2 * n_test
+    want = (verify, verify, steps * per_step + evals, steps * per_step) \
+        if ring else (verify + steps * per_step + evals,
+                      verify + steps * per_step, 0, 0)
+    if dev.type != "cuda":
+        want = (0, 0, 0, 0)    # a CPU rehearsal counts nothing
+    if run.launches != want:
+        raise AssertionError(f"launches {run.launches}, expected {want}")
+    its = sorted(log)
+    quiet = [(a, b) for a, b in zip(its, its[1:])
+             if not any(density.should_densify(i, cfg) or (
+                 0 < cfg.opacity_reset_interval
+                 and i % cfg.opacity_reset_interval == 0
+                 and i <= cfg.densify_until_iter) for i in range(a, b))]
+    losses = [log[it]["total_loss"] for it in its]
+    if not (np.isfinite(losses).all() and quiet and all(
+            log[b]["total_loss"] < log[a]["total_loss"] for a, b in quiet)):
+        raise AssertionError(f"losses {log}")
+    cam = tr.dataset.get_test_cameras()[0]
+    with torch.no_grad():
+        img_mesh = tr._mesh_render_fn(tr.settings)(cam)["image"]
+        img_one = render(tr.gathered_state().gaussians, cam,
+                         tr.settings)["image"]
+    val_err = gate(img_mesh, img_one, "mesh validate image")
+    kernels = mesh_kernel_gates(rc, tr, cam, size, ring)
+    # The checkpoint of the last step: the gathered state bit for bit, and
+    # split again shard for shard.
+    whole = tr.gathered_state()
+    loaded, _ = ckpt.load_checkpoint(str(out), steps, dev)
+    resplit = sharded.shard_train_state(loaded, tr.mesh)
+    same = loaded.step == whole.step and all(
+        torch.equal(getattr(loaded.gaussians, k), getattr(whole.gaussians, k))
+        for k in ("xyz", "features_dc", "features_rest", "scaling",
+                  "rotation", "opacity", "alive", "xyz_gradient_accum",
+                  "denom", "max_radii2D")) and all(
+        torch.equal(loaded.opt_state.mu[k], whole.opt_state.mu[k])
+        and torch.equal(loaded.opt_state.nu[k], whole.opt_state.nu[k])
+        for k in whole.opt_state.mu) and all(
+        torch.equal(x.gaussians.xyz, y.gaussians.xyz)
+        and torch.equal(x.opt_state.nu["xyz"], y.opt_state.nu["xyz"])
+        for x, y in zip(resplit.shards, tr.state.shards))
+    if not same:
+        raise AssertionError("the checkpoint does not load bit for bit")
+    res = {"mesh": [n_data, n_tile], "ring": ring, "steps": steps,
+           "launches": run.launches, "compaction": compacts[0], "pool": pool,
+           "n_alive": tr.state.num_alive(),
+           "log": {it: {k: log[it][k] for k in (
+               "total_loss", "n_split", "n_clone", "n_pruned", "n_alive",
+               "render_instances") if k in log[it]} for it in its},
+           "psnr": float(final[0].split("psnr=")[1].split()[0]),
+           "validate_err": val_err, "kernels": kernels,
+           "setup_s": run.times["setup"][0],
+           "step_ms_median": float(np.median(run.times["train_step"])) * 1e3,
+           "step_ms_min": min(run.times["train_step"]) * 1e3,
+           "step_ms_max": max(run.times["train_step"]) * 1e3}
+    if not ring:
+        code, text, resume = entry(base + ["--resume", str(steps),
+                                           "--iterations", "4"])
+        want_r = (verify + 4 * per_step + per_view * n_test,
+                  verify + 4 * per_step, 0, 0) if dev.type == "cuda" \
+            else (0, 0, 0, 0)
+        if code != 0 or sorted(parse_log(text)) != [steps + 4] or \
+                resume.objects[0].iteration != steps + 4 or \
+                resume.launches != want_r:
+            raise AssertionError(f"the resumed run failed: {resume.launches}"
+                                 f"\n{text}")
+        res["launches_resume"] = resume.launches
+    return res
+
+
+def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
+                        capacity: int = 2 ** 20) -> dict:
+    """Phase 17: scripts/train_1m_torch.py on an 8-view 800^2 Blender scene
+    made here (make_synthetic_scene_torch.py, spp 1), 1M seed points in a
+    2^20 pool, 40 + 20 iterations: the loss is finite and falls, and on
+    the trained state's stream of training view 0 B1 holds against its
+    plain version (the gate of phase 3) and B2, on the BAND_ROWS tile rows
+    around the heaviest tile, lies within ROWS_REL_L2 of the float64 plain
+    version or no farther from it than the float32 plain version does
+    (within PRECISION_SLACK);
+    then scripts/train_probe_torch.py at 256^2 for 300 steps: the PSNR
+    rises.  Raises on any check that fails."""
+    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+    from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
+
+    scene = workdir / "sdf_scene"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        code = load_script("make_synthetic_scene_torch").main([
+            "--out", str(scene), "--n-train", "8", "--n-test", "1", "--size",
+            str(VIEW_SIZE), "--spp", "1", "--device", dev.type])
+    gen_s = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError("the Blender scene was not written")
+
+    def run_script(name, argv):
+        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+        buf = io.StringIO()
+        with MethodTimes(GaussianTrainer, ["setup"], dev) as mt, \
+                contextlib.redirect_stdout(buf):
+            code = load_script(name).main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        if code != 0:
+            raise AssertionError(f"{name} failed:\n{buf.getvalue()}")
+        return (json.loads(lines[-1]), mt.objects[0],
+                (rc.raster_fwd.launches, rc.raster_bwd.launches), lines)
+
+    one, tr, launches_1m, lines = run_script("train_1m_torch", [
+        "--scene", str(scene), "--iters", "40", "--steady", "20",
+        "--log-interval", "1",
+        "--n-points", str(n_points), "--capacity", str(capacity),
+        "--device", dev.type])
+    losses = one["losses"]
+    per = 1 if dev.type == "cuda" else 0  # a CPU rehearsal counts nothing
+    # Every step is logged, each under a camera drawn at random: the mean
+    # of the last ten against the mean of the first ten.
+    if one["iterations"] != 60 or launches_1m != (per * 61, per * 60) or \
+            one["n_alive"] != n_points or not (
+            np.isfinite(losses).all()
+            and np.mean(losses[-10:]) < np.mean(losses[:10])):
+        raise AssertionError(f"train_1m_torch: {launches_1m} {one}")
+    cam = tr.train_cameras()[0]
+    proj = project_with(tr.state.gaussians, cam, tr.settings)
+    b, stream = rc.tile_stream(proj, VIEW_SIZE, VIEW_SIZE, 32)
+    tiles_x = -(-VIEW_SIZE // 32)
+    fargs = (stream, b.tile_start, b.tile_count, tiles_x, 32)
+    acc_k = rc.raster_fwd(*fargs)
+    bargs = (*fargs, acc_k, seeded_gout(acc_k, 1717))
+    ms = (cuda_ms(lambda: rc.raster_fwd(*fargs, ranges_checked=True)),
+          cuda_ms(lambda: rc.raster_bwd(*bargs, ranges_checked=True)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd_err = gate_acc(acc_k, rc.raster_fwd_plain(*fargs), "1M train view")
+    # B2 on the BAND_ROWS tile rows around the heaviest tile (the tile
+    # ranges the kernels take), held to the float64 plain version: each of
+    # its ten rows within gate_rows' ROWS_REL_L2 of it (rel-L2), or, where
+    # float32 cannot reach that, within PRECISION_SLACK of the float32
+    # plain version's own distance from it.  On lists of tens of thousands
+    # of instances both float32 computations lie farther from float64 than
+    # the gate of phase 3 allows (scripts/raster_precision_torch.py); on
+    # rows well inside it the two distances are two float32 roundings of
+    # like size, and their ratio is noise.
+    n_rows = min(BAND_ROWS, b.tile_start.shape[0] // tiles_x)
+    heavy_row = int(torch.argmax(b.tile_count)) // tiles_x
+    row0 = min(max(heavy_row - n_rows // 2, 0),
+               b.tile_start.shape[0] // tiles_x - n_rows)
+    lo, hi = row0 * tiles_x, (row0 + n_rows) * tiles_x
+    band = dict(tile0=lo)
+    bf = (stream, b.tile_start[lo:hi], b.tile_count[lo:hi], tiles_x, 32)
+    acc_b = rc.raster_fwd(*bf, **band)
+    g_b = seeded_gout(acc_b, 1717)
+    d_k = rc.raster_bwd(*bf, acc_b, g_b, **band)
+    d_32 = rc.raster_bwd_plain(*bf, acc_b, g_b, **band)
+    acc64 = rc.raster_fwd_plain(stream.double(), *bf[1:], **band)
+    d_64 = rc.raster_bwd_plain(stream.double(), *bf[1:], acc64,
+                               g_b.double(), **band)
+    rel = lambda a: ((a.double() - d_64).norm(dim=1)
+                     / d_64.norm(dim=1).clamp(min=1e-30))
+    rel_k, rel_32 = rel(d_k), rel(d_32)
+    print(f"    1M band of {n_rows} tile rows from row {row0}: B2 rel-L2 "
+          f"from float64 by row {' '.join(f'{x:.2e}' for x in rel_k)}; the "
+          f"float32 plain version's {' '.join(f'{x:.2e}' for x in rel_32)}")
+    bound = torch.clamp(PRECISION_SLACK * rel_32 + 1e-6, min=ROWS_REL_L2)
+    if not bool(torch.isfinite(d_k).all()) or bool((rel_k > bound).any()):
+        raise AssertionError("1M band: the backward kernel lies farther from "
+                             "float64 than gate_rows' bound and than its "
+                             "float32 plain version does")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    heavy = int(b.tile_count.max())
+    mean = float(b.tile_count.float().mean())
+    print(f"[17a train_1m_torch.py] Blender scene of 8 + 1 views at "
+          f"{VIEW_SIZE}^2 spp 1 made in {gen_s:.2f} s; 1M seed points, pool "
+          f"2^20, tile 32, SH 0, {one['iterations']} iterations: launches "
+          f"fwd/bwd {launches_1m}, first step {one['first_step_s']:.2f} s, "
+          f"window {one['window_ms_per_it']:.1f} ms/it, steady "
+          f"{one['steady_ms_per_it']:.1f} ms/it, peak "
+          f"{one['peak_gib'] or 0:.2f} GiB of {one['card_gib'] or 0:.1f}, "
+          f"n_alive "
+          f"{one['n_alive']}, n_live {one['n_live']}, mean loss of the "
+          f"first / last 10 steps {np.mean(losses[:10]):.5f} / "
+          f"{np.mean(losses[-10:]):.5f}, PSNR {one['psnr']:.2f}\n"
+          f"  train view 0: n_live {b.n_live}, heaviest tile {heavy} "
+          f"instances against a mean of {mean:.1f} ({heavy / mean:.1f}x); "
+          f"raster_fwd {ms[0]:.3f} ms, raster_bwd {ms[1]:.3f} ms; B1 gated "
+          f"on the whole stream, B2 against float64 on {BAND_ROWS} tile "
+          f"rows; the plain versions {plain_s:.1f} s", flush=True)
+
+    probe, _, launches_probe, _ = run_script("train_probe_torch", [
+        "--device", dev.type, "--steps", "300", "--size", "256"])
+    psnrs = [e["psnr"] for e in probe["log"]]
+    if launches_probe != (per * (300 + len(psnrs) + 1), per * 300) \
+            or len(psnrs) != 3 \
+            or not psnrs[-1] > psnrs[0]:
+        raise AssertionError(f"train_probe_torch: {launches_probe} {probe}")
+    print(f"[17b train_probe_torch.py] 256^2, 300 steps: PSNR "
+          f"{' -> '.join(f'{p:.2f}' for p in psnrs)} dB, "
+          f"{probe['steps_per_s']:.1f} steps/s, alive {probe['alive']} "
+          f"(pool {probe['capacity']}), launches fwd/bwd {launches_probe}",
+          flush=True)
+    return {"one": one, "launches_1m": launches_1m, "n_live_view0": b.n_live,
+            "heaviest_over_mean": heavy / mean, "fwd_err": fwd_err,
+            "rel_k": rel_k.tolist(), "rel_32": rel_32.tolist(),
+            "kernel_ms": ms, "plain_s": plain_s,
+            "generate_s": gen_s, "probe": probe,
+            "launches_probe": launches_probe}
+
+
 def main() -> int:
     # ---- 1. device ----------------------------------------------------
     t_start = time.perf_counter()
@@ -933,7 +1426,7 @@ def main() -> int:
     from mini3dgs_tpu_torch.core.loss import gaussian_loss
     from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops import raster_ref
-    from mini3dgs_tpu_torch.ops.binning import ROW_DEPTH, bin_gaussians
+    from mini3dgs_tpu_torch.ops.binning import bin_gaussians
     from mini3dgs_tpu_torch.ops.projection import project_gaussians
     from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render
     from mini3dgs_tpu_torch.parallel.mesh import make_mesh
@@ -1640,32 +2133,17 @@ def main() -> int:
     g5_share = float(torch.stack([g_in[b, 0][:, 5].abs().max()
                                   for b in range(n_rk)]).max()
                      / g_acc[:, :5].abs().max())
-    t3 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=0.0, worst=0.0)
-    t4 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=0.0, worst=0.0)
-    d_kernel, d_plain, heaviest = [], [], {}
+    err3, err4 = gate_ring_step(rc, segs, t_in, acc_seg, g_in, tiles_x, 32,
+                                ntb)
+    t3 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=err3, worst=0.0)
+    t4 = dict(ms=0.0, plain=0.0, bound=0.0, by={}, err=err4, worst=0.0)
+    heaviest = {}
     for (b, r), seg in segs.items():
         fargs = (*seg, tiles_x, 32)
         kw = dict(t0=t_in[b, r], tile0=b * ntb)
         bargs = (*fargs, acc_seg[b, r], g_in[b, r])
         n_seg = seg[0].shape[1]
         heaviest[b, r] = (int(seg[2].max()), float(seg[2].float().mean()))
-        if n_seg:
-            name = f"band{b} range{r}"
-            t3["err"] = max(t3["err"], gate_acc(
-                acc_seg[b, r], rc.raster_fwd_plain(*fargs, **kw), name,
-                has_t0=True, depth_scale=float(seg[0][ROW_DEPTH].max())))
-            d_k, dt0_k = rc.raster_bwd(*bargs, **kw)
-            d_p, dt0_p = rc.raster_bwd_plain(*bargs, **kw)
-            d_kernel.append(d_k)
-            d_plain.append(d_p)
-            # Kernel and plain version read the same accumulators and the
-            # same cotangent, so d_t0 has no cliff and is held per launch.
-            t4["err"] = max(t4["err"], gate_rows(
-                dt0_k.reshape(1, -1), dt0_p.reshape(1, -1), name + " d_t0"))
-        elif bool((acc_seg[b, r][:, :5] != 0).any()) \
-                or not torch.equal(acc_seg[b, r][:, 5:6], t_in[b, r]):
-            raise AssertionError(f"band {b} range {r}: an empty segment "
-                                 "changed the accumulators")
         pairs = pair_counts(rc, *fargs, **kw)
         bounds = raster_bounds(pairs, n_seg, ntb, P, has_t0=True)
         # Timed as the ring calls them: the ranges were checked at the origin,
@@ -1681,11 +2159,6 @@ def main() -> int:
             t["plain"] += cuda_ms(plain, reps=1)
             t["bound"] += bd[0]
             t["by"][bd[1]] = t["by"].get(bd[1], 0.0) + bd[0]
-    # The instance rows of all launches side by side, each row on the scale
-    # of the step's largest entry: behind a small transmittance a launch's
-    # own rows are small, and one early-stop flip would outweigh them.
-    t4["err"] = max(t4["err"], gate_rows(
-        torch.cat(d_kernel, 1), torch.cat(d_plain, 1), "all launches"))
     for t in (t3, t4):
         t["by"] = max(t["by"], key=t["by"].get)
     print(f"[11b the {n_rk * n_rk} launches of a ring step] trained ring "
@@ -1804,7 +2277,53 @@ def main() -> int:
           f"{pp['jax_record']['psnr']:.4f}; gates dB "
           f"{json.dumps(pp['gates_db'])} (each <= {pp['gate_db']}) | {smi}",
           flush=True)
-    print(f"chip_smoke: phases 1-15 passed in "
+
+    # ---- 16. the trainer over a (data, tile) mesh at full width --------
+    # 4 ranks on the one card at tile 16 (800 / 16 = 50 tile rows: 2 bands
+    # of 25); the flagship SH-3 set `g` of phase 4 towards renders of the
+    # seed-7 set from the bench view and from the same pose at a 40-degree
+    # FoV, which leaves the cube's edges out: its rows are counted by each
+    # layout's own rule.
+    settings16 = settings.replace(tile_size=MESH_TILE_SIZE)
+    t_g = convert.gaussians_from_numpy(t_params, t_alive, dev)
+    narrow = convert.camera_from_numpy(
+        **{**cam, "FoVx": np.radians(40.0), "FoVy": np.radians(40.0)},
+        width=VIEW_SIZE, height=VIEW_SIZE, device=dev)
+    with torch.no_grad():
+        mesh_cams = [c.replace(image=render(t_g, c, settings16)["image"])
+                     for c in (bench_cam, narrow)]
+    m16 = mesh_step_phase(dev, g, mesh_cams, settings16,
+                          float(scene_extent_of(g)))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        mesh_runs = [mesh_entry_phase(dev, g, N_GAUSSIANS, VIEW_SIZE, tmp,
+                                      ring) for ring in (False, True)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for tag, r in zip("cd", mesh_runs):
+        print(f"[16{tag} main_torch.py over a mesh] shard_gauss_state, mesh "
+              f"{tuple(r['mesh'])}{', ring_exchange' if r['ring'] else ''}, "
+              f"tile {MESH_TILE_SIZE}, {r['steps']} steps on phase 13's "
+              f"COLMAP scene: launches fwd/bwd/fwd_t0/bwd_t0 "
+              f"{r['launches']}"
+              + (f" (resume {r['launches_resume']})" if 'launches_resume'
+                 in r else "")
+              + f", {r['compaction']}, n_alive {r['n_alive']}, final PSNR "
+              f"{r['psnr']:.2f}, validate on the mesh vs one device "
+              f"{r['validate_err']:.2e}\n  kernels against their plain "
+              f"versions at tile {MESH_TILE_SIZE}: {json.dumps(r['kernels'])}"
+              f"\n  log: {json.dumps(r['log'])}\n"
+              f"  setup {r['setup_s']:.2f} s; trainer step ms median "
+              f"{r['step_ms_median']:.2f} min {r['step_ms_min']:.2f} max "
+              f"{r['step_ms_max']:.2f} | {smi}", flush=True)
+
+    # ---- 17. the 1M-Gaussian run and the training probe ----------------
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        e17 = entry_scripts_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"chip_smoke: phases 1-17 passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- result -------------------------------------------------------
@@ -1816,7 +2335,10 @@ def main() -> int:
          "launches_trainer": tr13["launches"][0],
          "launches_texture_scene": tx["launches"][0],
          "launches_parity_tiles": pp["routes"]["tiles"]["launches_fwd"],
-         "max_abs_err": max(fwd_err, fwd_patch_err),
+         "launches_mesh_trainer": mesh_runs[0]["launches"][0],
+         "launches_1m": e17["launches_1m"][0],
+         "max_abs_err": max(fwd_err, fwd_patch_err, e17["fwd_err"],
+                            mesh_runs[0]["kernels"]["fwd_err"]),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "raster_bwd", "route": "cuda",
@@ -1826,7 +2348,10 @@ def main() -> int:
          "launches_trainer": tr13["launches"][1],
          "launches_texture_scene": tx["launches"][1],
          "launches_parity_tiles": pp["routes"]["tiles"]["launches_bwd"],
-         "max_abs_err": max(bwd_err, patch_err),
+         "launches_mesh_trainer": mesh_runs[0]["launches"][1],
+         "launches_1m": e17["launches_1m"][1],
+         "max_abs_err": max(bwd_err, patch_err,
+                            mesh_runs[0]["kernels"]["bwd_err"]),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},
         # The two builds with t0: times, plain times and bounds are sums
@@ -1838,7 +2363,10 @@ def main() -> int:
          "launches": ring_train_launches[2],
          "launches_per_step": per_step,
          "launches_render": ring_render_launches[2],
-         "max_abs_err": max(t0_err, t3["err"]), "ms": t3["ms"],
+         "launches_mesh_trainer": mesh_runs[1]["launches"][2],
+         "max_abs_err": max(t0_err, t3["err"],
+                            mesh_runs[1]["kernels"]["fwd_t0_err"]),
+         "ms": t3["ms"],
          "ms_slowest_launch": t3["worst"], "plain_ms": t3["plain"],
          "bound_ms": t3["bound"], "bound_by": t3["by"], "library_ms": None},
         {"name": "raster_bwd_t0", "route": "cuda",
@@ -1846,13 +2374,23 @@ def main() -> int:
          "replaces": "mini3dgs_tpu/ops/raster_pallas.py:382",
          "launches": ring_train_launches[3],
          "launches_per_step": per_step,
-         "max_abs_err": max(dt0_err, patch_t0_err, t4["err"]),
+         "launches_mesh_trainer": mesh_runs[1]["launches"][3],
+         "max_abs_err": max(dt0_err, patch_t0_err, t4["err"],
+                            mesh_runs[1]["kernels"]["bwd_t0_err"]),
          "ms": t4["ms"],
          "ms_slowest_launch": t4["worst"], "plain_ms": t4["plain"],
          "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None}],
         "ring": {"ranks": n_rk, "render_ms": ring_ms, "step_ms": r_ms,
                  "render_err": ring_render_err,
-                 "grad_rel_l2": ring_grad_err}}))
+                 "grad_rel_l2": ring_grad_err},
+        "mesh": {"step_vs_replicated": m16,
+                 "trainer_step_ms": [r["step_ms_median"] for r in mesh_runs]},
+        "one_million": {k: e17["one"][k] for k in (
+            "steady_ms_per_it", "window_ms_per_it", "peak_gib", "n_alive",
+            "n_live", "psnr")},
+        "one_million_b2_rel_l2_from_float64": {
+            "kernel": e17["rel_k"], "plain_float32": e17["rel_32"]},
+        "probe_psnr": e17["probe"]["psnr"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,12 +2,17 @@
 main.py): load the config -> GaussianTrainer (dataset, Gaussians from its
 point cloud) -> optionally resume -> train -> validate -> save a
 checkpoint.  It runs on the card unless the config's `system: device` or
---device says cpu.
+--device says cpu.  With --mesh-data D --mesh-tile T (or the config's
+`tpu: mesh_data / mesh_tile`) it trains over a (data, tile) mesh of D x T
+ranks, spread over the visible cards (on one card all ranks share it):
+D cameras a step, each image in T bands of whole tile rows; the config's
+`shard_gauss_state: true` splits the pool and its Adam state over the
+ranks, `ring_exchange: true` runs the bands' ring.
 
 Usage:
     python3 main_torch.py --config configs/default.yaml [--data PATH]
         [--output DIR] [--iterations N] [--resume IT] [--no-pallas]
-        [--device cuda|cpu]
+        [--mesh-data D] [--mesh-tile T] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no-pallas", action="store_true",
                    help="render through the golden compositor, not the "
                         "tile kernels")
-    p.add_argument("--mesh-data", type=int, default=None)
-    p.add_argument("--mesh-tile", type=int, default=None)
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="cameras trained side by side (data axis)")
+    p.add_argument("--mesh-tile", type=int, default=None,
+                   help="image bands of whole tile rows (tile axis)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda or cpu (default: the config's; the card "
                         "unless it says cpu)")

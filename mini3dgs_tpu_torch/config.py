@@ -11,11 +11,10 @@ Two groups of the JAX package's keys have no field here:
     The port's instance stream holds exactly the live instances and it
     takes one step per call, so they mean nothing here: a file that sets
     them is read, and the keys are reported once on stderr.
-  * `ROUTE_KEYS` choose a mesh route the port does not have yet (ROADMAP
-    section A, item 4).  A file that sets one to anything but its default
-    raises ValueError.  A mesh (`mesh_data * mesh_tile > 1`) is refused by
-    `GaussianTrainer.setup`, since the sharded step exists without the
-    trainer's half of it.
+  * `ROUTE_KEYS` choose ring v2 / v3 (the rank reshard of the projected
+    rows, the ring over the local gid block), which the port does not have
+    yet (ROADMAP section A, item 4).  A file that sets one to anything but
+    its default raises ValueError.
 """
 
 from __future__ import annotations
@@ -111,6 +110,12 @@ class TrainingConfig:
     mesh_data: int = 1               # cameras trained side by side
     mesh_tile: int = 1               # image bands of whole tile rows
     ring_exchange: bool = False      # ring exchange of depth-rank-range segments (parallel/ring.py)
+    # Split the pool and its Adam state over the mesh's ranks (per-rank
+    # state memory ~C/n; parallel/sharded.shard_train_state).
+    shard_gauss_state: bool = False
+    # At setup under a mesh, hold one tiny sharded step's gradients against
+    # single-device autograd (parallel/sharded.verify_shard_grad_parity).
+    verify_sharding: bool = True
 
     # -- system --
     device: str = "tpu"              # "cpu", or the card ("cuda"; "tpu" too)
@@ -123,11 +128,11 @@ class TrainingConfig:
 SHAPE_ONLY_KEYS = ("max_instances", "gaussian_chunk", "max_dup_per_axis",
                    "large_capacity", "ring_capacity", "steps_per_call",
                    "loop_stage_budget_mb", "auto_max_instances", "dtype")
-# The JAX package's keys of mesh routes the port has not yet (ROADMAP
-# section A, item 4), with the JAX defaults: any other value raises.
-ROUTE_KEYS = {"shard_gauss_state": False, "ring_reshard": False,
-              "ring_local": False, "ring_reshard_capacity": 0,
-              "verify_sharding": True}
+# The JAX package's keys of ring v2 / v3, which the port has not yet
+# (ROADMAP section A, item 4), with the JAX defaults: any other value
+# raises.
+ROUTE_KEYS = {"ring_reshard": False, "ring_local": False,
+              "ring_reshard_capacity": 0}
 
 # Mapping from nested YAML groups to flat field names (the JAX package's).
 _NESTED_MAP = {
@@ -231,9 +236,10 @@ def config_from_dict(data: dict, source: str = "config") -> TrainingConfig:
     for k, v in routes.items():
         if v != ROUTE_KEYS[k]:
             raise ValueError(
-                f"{source}: {k}={v!r} selects a mesh route the PyTorch port "
-                "does not have yet (ROADMAP section A, item 4); leave it at "
-                f"{ROUTE_KEYS[k]!r}")
+                f"{source}: {k}={v!r} selects ring v2 / v3 (the rank "
+                "reshard, the ring over the local gid block), which the "
+                "PyTorch port does not have yet (ROADMAP section A, item 4); "
+                f"leave it at {ROUTE_KEYS[k]!r}")
     shape_only = {k: flat.pop(k) for k in list(flat) if k in SHAPE_ONLY_KEYS}
     if shape_only:
         print(f"[config] {source}: not used by the PyTorch port (they size "

@@ -132,24 +132,25 @@ def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
                      pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: all tiles at once, one
     `chunk`-wide slice of every tile's instance list per step.  Returns
-    [T, 8, P] float32; with `t0` [T, 1, P] the transmittance starts there
+    [T, 8, P]; with `t0` [T, 1, P] the transmittance starts there
     and row 5 holds what it ends with.
 
     `pixels` (indices into a tile's P pixels) restricts every tile to those
     pixels (`t0` stays the whole tile's): the result then has their number
     as its last dimension.  A pixel's value does not depend on which others
     are computed beside it; the kernel's blocks each compute a sub-tile's
-    (`sub_tile_pixels`)."""
+    (`sub_tile_pixels`).  It computes in the stream's dtype: a float64
+    stream gives a float64 reference."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
-    dev = stream.device
+    dev, dt = stream.device, stream.dtype
     px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
     if pixels is not None:
         px, py, P = px[:, pixels], py[:, pixels], pixels.numel()
         t0 = None if t0 is None else t0[:, :, pixels]
-    out = torch.zeros(T, N_ACC, P, dtype=torch.float32, device=dev)
+    out = torch.zeros(T, N_ACC, P, dtype=dt, device=dev)
     if t0 is None:
-        trans = torch.ones(T, P, dtype=torch.float32, device=dev)
+        trans = torch.ones(T, P, dtype=dt, device=dev)
     else:
         trans = t0.reshape(T, P)
         out[:, 5] = trans
@@ -157,8 +158,7 @@ def raster_fwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
         return out
     start = tile_start.long()[:, None]
     count = tile_count.long()[:, None]
-    acc = [torch.zeros(T, P, dtype=torch.float32, device=dev)
-           for _ in range(5)]
+    acc = [torch.zeros(T, P, dtype=dt, device=dev) for _ in range(5)]
     lanes = torch.arange(chunk, device=dev)[None, :]
     for base in range(0, int(tile_count.max()), chunk):
         if not bool(((1.0 - trans) < EARLY_STOP_A).any()):
@@ -202,10 +202,11 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
     `pixels` (indices into a tile's P pixels) restricts every tile to those
     pixels: the sums then run over them only, and d_t0 has their number as
     its last dimension.  The kernel's blocks at tile 32 each compute such a
-    partial sum, over `sub_tile_pixels`."""
+    partial sum, over `sub_tile_pixels`.  It computes in the stream's
+    dtype, as the forward's plain version does."""
     T = tile_start.shape[0]
     P = tile_size * tile_size
-    dev = stream.device
+    dev, dt = stream.device, stream.dtype
     px, py = _pixel_coords(T, tiles_x, tile_size, dev, tile0)
     if pixels is not None:
         px, py, acc, gout = (px[:, pixels], py[:, pixels], acc[:, :, pixels],
@@ -215,7 +216,7 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
     d_stream = torch.zeros_like(stream)
     if t0 is None:
         total = (gout[:, :5] * acc[:, :5]).sum(1)[:, :, None]   # [T, P, 1]
-        trans = torch.ones(T, P, dtype=torch.float32, device=dev)
+        trans = torch.ones(T, P, dtype=dt, device=dev)
         result = d_stream
     else:
         total = (gout[:, :6] * acc[:, :6]).sum(1)[:, :, None]
@@ -227,9 +228,9 @@ def raster_bwd_plain(stream: torch.Tensor, tile_start: torch.Tensor,
     start = tile_start.long()[:, None]
     count = tile_count.long()[:, None]
     g_r, g_g, g_b, g_d, g_a = (gout[:, k, :, None] for k in range(5))
-    prefix = torch.zeros(T, P, 1, dtype=torch.float32, device=dev)
+    prefix = torch.zeros(T, P, 1, dtype=dt, device=dev)
     lanes = torch.arange(chunk, device=dev)[None, :]
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
     for base in range(0, int(tile_count.max()), chunk):
         if not bool(((1.0 - trans) < EARLY_STOP_A).any()):
             break  # the rows behind stay exactly 0

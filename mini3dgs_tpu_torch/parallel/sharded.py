@@ -1,5 +1,5 @@
 """Rendering and training over a (data, tile) mesh (counterpart of
-mini3dgs_tpu/parallel/sharded.py, the replicated-state half).
+mini3dgs_tpu/parallel/sharded.py).
 
   * data axis: one camera per rank; the loss, and so the gradients, are the
     mean over the cameras.
@@ -9,37 +9,53 @@ mini3dgs_tpu/parallel/sharded.py, the replicated-state half).
     exchanges a 5-row halo for the SSIM term.  Per-Gaussian gradients are
     the sum over the bands.
 
+Two layouts of the train state:
+  * replicated (`make_sharded_train_step`): one `TrainState` on its own
+    device, every rank works on a copy;
+  * gauss-sharded (`shard_train_state`, `make_gauss_sharded_train_step`):
+    every [C, ...] leaf (parameters, Adam moments, statistic buffers,
+    `alive`) is split into data x tile row blocks of C/n, one per rank, and
+    the Adam update runs on each block where it lives.  Rank (d, t) holds
+    global block t * data + d (the JAX package's tile-major `GAUSS_AXES`),
+    so a gather over `data` at a fixed t is one contiguous block of slots.
+
 Two band routes: the ring exchange of depth-rank-range segments
-(parallel/ring.py, `settings.ring`), which runs the raster kernels' `t0`
-builds, and the band-restricted `rasterize_tiles` (every rank bins the whole
-image and launches the kernels on its band's tile rows), which the ring is
-compared against.  The sharded candidate sort (`bin_gaussians_sharded`), ring
-v2/v3 and the gauss-sharded state are not ported yet.
+(parallel/ring.py, `settings.ring`, ring v1), which runs the raster kernels'
+`t0` builds, and the band-restricted `rasterize_tiles` (every rank bins the
+whole image and launches the kernels on its band's tile rows), which the
+ring is compared against.  The sharded candidate sort
+(`bin_gaussians_sharded`) and ring v2/v3 are not ported yet.
 
 The ranks of an axis are a Python loop (parallel/mesh.py) and autograd
-differentiates through the collectives as they stand: the state's
-parameters are leaves on the state's device, every rank works on a `.to`
-copy, and the gradient of the one scalar loss is already the sum over bands
-and the mean over cameras.  None of the JAX package's psum-transpose factors
-exists here.
+differentiates through the collectives as they stand: every rank works on
+`.to` copies of the leaves, and the gradient of the one scalar loss is
+already the sum over bands and the mean over cameras, delivered to each
+leaf where it lives.  None of the JAX package's psum-transpose factors
+exists here.  `verify_shard_grad_parity` holds either layout's gradients
+against single-device autograd at setup.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..config import TrainingConfig
 from ..core.camera import Camera
 from ..core.gaussians import Gaussians
-from ..core.loss import gaussian_loss_banded
+from ..core.loss import gaussian_loss, gaussian_loss_banded
 from ..ops.projection import Projected, project_gaussians
 from ..ops.raster_cuda import rasterize_tiles
-from ..ops.renderer import RenderSettings
+from ..ops.renderer import RenderSettings, render
 from ..train.exposure import apply_exposure
-from ..train.trainer import TrainState, apply_gradients, mask_dead_gradients
+from ..train.optimizer import AdamState
+from ..train.trainer import (TrainState, apply_gradients, create_train_state,
+                             densify_step, mask_dead_gradients)
 from . import mesh as M
 from .ring import ring_rasterize_bands
 
@@ -52,6 +68,24 @@ def _band_height(settings: RenderSettings, n_tile: int) -> int:
     return H // n_tile
 
 
+def _projection_kw(settings: RenderSettings) -> dict:
+    return dict(radius_min=settings.radius_min,
+                radius_max=settings.radius_max,
+                color_mode=settings.color_mode, sh_degree=settings.sh_degree,
+                scale_modifier=settings.scale_modifier,
+                antialias=settings.antialias)
+
+
+def _gather_projected(shards: Sequence[Projected],
+                      devices: Sequence) -> List[Projected]:
+    """Every rank receives the ranks' projected rows concatenated in rank
+    order (one all_gather per field)."""
+    fields = [M.all_gather([sh[f] for sh in shards], devices)
+              for f in range(len(Projected._fields))]
+    return [Projected(*(field[i] for field in fields))
+            for i in range(len(devices))]
+
+
 def _project(gs: Sequence[Gaussians], cameras: Sequence[Camera],
              settings: RenderSettings, devices: Sequence) -> List[Projected]:
     """EWA projection, primitive-sharded: rank i (holding the replicated
@@ -60,10 +94,7 @@ def _project(gs: Sequence[Gaussians], cameras: Sequence[Camera],
     elementwise per slot, so the result equals the replicated projection;
     when C does not divide over the ranks every rank projects the whole
     pool."""
-    kw = dict(radius_min=settings.radius_min, radius_max=settings.radius_max,
-              color_mode=settings.color_mode, sh_degree=settings.sh_degree,
-              scale_modifier=settings.scale_modifier,
-              antialias=settings.antialias)
+    kw = _projection_kw(settings)
     n, C = len(devices), gs[0].capacity
     if n <= 1 or C % n:
         return [project_gaussians(g, cam, **kw)
@@ -71,9 +102,7 @@ def _project(gs: Sequence[Gaussians], cameras: Sequence[Camera],
     Cs = C // n
     shards = [project_gaussians(g.slots(i * Cs, (i + 1) * Cs), cam, **kw)
               for i, (g, cam) in enumerate(zip(gs, cameras))]
-    fields = [M.all_gather([sh[f] for sh in shards], devices)
-              for f in range(len(Projected._fields))]
-    return [Projected(*(field[i] for field in fields)) for i in range(n)]
+    return _gather_projected(shards, devices)
 
 
 def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
@@ -103,6 +132,48 @@ def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
         for i, (proj, dev) in enumerate(zip(projs, devices))]
 
 
+def _assemble(outs: Sequence[dict], device, ring: bool) -> dict:
+    """The whole image, alpha and depth from the bands, on `device`."""
+    full = {k: M.all_gather([o[k] for o in outs], [device], dim=1)[0]
+            for k in ("image", "alpha", "depth")}
+    full["n_live"] = [o["n_live"] for o in outs]
+    if ring:
+        full["seg_live"] = [o["seg_live"] for o in outs]
+    return full
+
+
+def _band_loss(outs: Sequence[dict], camera: Camera, devices: Sequence,
+               band_h: int, W: int, config: TrainingConfig,
+               exposure: Optional[torch.Tensor], cam_idx: Optional[int]):
+    """The banded L1 + D-SSIM of one camera's bands (with its affine
+    exposure applied to each band first): (total, parts) on devices[0]."""
+    with record_function("3dgs:loss"):
+        images = [o["image"] for o in outs]
+        if exposure is not None:
+            images = [apply_exposure(exposure.to(dev)[cam_idx], im)
+                      for im, dev in zip(images, devices)]
+        targets = [camera.image.to(dev)[:, i * band_h:(i + 1) * band_h, :W]
+                   for i, dev in enumerate(devices)]
+        return gaussian_loss_banded(images, targets, devices,
+                                    config.lambda_dssim)[0]
+
+
+def _camera_mean(totals: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The data axis' reduction of the loss: the mean over the cameras."""
+    return torch.stack(totals).mean()
+
+
+def _step_metrics(parts_all, n_live, n_dropped, n_visible) -> dict:
+    metrics = {k: torch.stack([p[k] for p in parts_all]).mean()
+               for k in parts_all[0]}
+    metrics.update(
+        render_drops=sum(n_dropped) / len(n_dropped),
+        # the fullest stream of any rank, not the sum
+        render_instances=max(n_live),
+        n_visible=n_visible)
+    return metrics
+
+
 def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
     """Band-sharded inference renderer over the mesh's tile axis:
     (Gaussians, Camera) -> dict with the whole image [3,H,W], alpha and
@@ -118,12 +189,7 @@ def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
         with record_function("3dgs:projection"):
             projs = _project(gs, cams, settings, devices)
         outs = _render_bands(projs, settings, band_h, devices)
-        full = {k: M.all_gather([o[k] for o in outs], devices[:1], dim=1)[0]
-                for k in ("image", "alpha", "depth")}
-        full["n_live"] = [o["n_live"] for o in outs]
-        if settings.ring:
-            full["seg_live"] = [o["seg_live"] for o in outs]
-        return full
+        return _assemble(outs, devices[0], settings.ring)
 
     return sharded_render
 
@@ -182,34 +248,22 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
                 radii = projs[0].radius.detach().to(home)
                 visible = projs[0].visible.to(home)
             outs = _render_bands(projs, st, band_h, devices)
-            with record_function("3dgs:loss"):
-                images = [o["image"] for o in outs]
-                if exposure is not None:
-                    images = [apply_exposure(exposure.to(dev)[cam_idx[d]], im)
-                              for im, dev in zip(images, devices)]
-                targets = [cam.image[:, i * band_h:(i + 1) * band_h, :W]
-                           for i, cam in enumerate(cams)]
-                total, parts = gaussian_loss_banded(
-                    images, targets, devices, config.lambda_dssim)[0]
+            total, parts = _band_loss(outs, camera, devices, band_h, W,
+                                      config, exposure,
+                                      None if cam_idx is None else cam_idx[d])
             totals.append(total.to(home))
             parts_all.append({k: v.detach().to(home)
                               for k, v in parts.items()})
             n_live += [o["n_live"] for o in outs]
             n_dropped.append(sum(o["n_dropped"] for o in outs))
-        total = torch.stack(totals).mean()          # the mean over cameras
+        total = _camera_mean(totals)
 
         wrt = list(params.values()) + [probe]
         if exposure is not None:
             wrt.append(exposure)
         with record_function("3dgs:backward"):
             grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
-        metrics = {k: torch.stack([p[k] for p in parts_all]).mean()
-                   for k in parts_all[0]}
-        metrics.update(
-            render_drops=sum(n_dropped) / len(n_dropped),
-            # the fullest stream of any rank, not the sum
-            render_instances=max(n_live),
-            n_visible=visible.sum())
+        metrics = _step_metrics(parts_all, n_live, n_dropped, visible.sum())
         if grads_only:
             return mask_dead_gradients(params, grads_all, g0.alive), metrics
         new_state = apply_gradients(state, params, probe, exposure,
@@ -217,3 +271,354 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
         return new_state, metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# The gauss-sharded state: every [C, ...] leaf split over the mesh's ranks.
+# ---------------------------------------------------------------------------
+
+# The order in which the mesh's axes split the slots: tile-major, so that
+# rank (d, t) holds global block t * data + d.  A gather over `data` at a
+# fixed t then yields one contiguous block of slots per tile index, and a
+# second gather over `tile` restores the global slot order.
+GAUSS_AXES = ("tile", "data")
+
+
+def gauss_block(mesh: M.Mesh, rank: int) -> int:
+    """The global block of slots that rank `rank` (= d * tile + t, the
+    index of its device in `mesh.devices`) holds: t * data + d."""
+    d, t = divmod(rank, mesh.tile)
+    return t * mesh.data + d
+
+
+def _rank_of(mesh: M.Mesh, d: int, t: int) -> int:
+    return d * mesh.tile + t
+
+
+@dataclass
+class GaussShardedState:
+    """A `TrainState` split over the ranks of a mesh: `shards[r]` is rank
+    r's own `TrainState`, on `mesh.devices[r]`, holding the C/n slots of
+    global block `gauss_block(mesh, r)` of every [C, ...] leaf.  `step`,
+    the Adam counts and the exposure table (with its Adam state) are
+    replicated: every shard has them, equal."""
+
+    shards: List[TrainState]
+
+    @property
+    def step(self) -> int:
+        return self.shards[0].step
+
+    @property
+    def capacity(self) -> int:
+        return sum(s.gaussians.capacity for s in self.shards)
+
+    def num_alive(self) -> int:
+        return sum(s.gaussians.num_alive() for s in self.shards)
+
+
+def _copy_to(x, device):
+    return None if x is None else x.to(device, copy=True)
+
+
+def _adam_copy(s: Optional[AdamState], device, rows=slice(None)
+               ) -> Optional[AdamState]:
+    if s is None:
+        return None
+    rows_of = lambda moments: {k: _copy_to(v[rows], device)
+                               for k, v in moments.items()}
+    return AdamState(count=s.count, sched_count=s.sched_count,
+                     mu=rows_of(s.mu), nu=rows_of(s.nu))
+
+
+def shard_train_state(state: TrainState, mesh: M.Mesh) -> GaussShardedState:
+    """Split `state` over the mesh: every [C, ...] leaf (each field of the
+    pool, each Adam moment) by rows, the rest replicated -- the JAX
+    package's `train_state_specs`, which torch needs no annotations for.
+    The shards are copies: they share no storage with `state`.  Raises
+    ValueError when the capacity does not divide over the ranks."""
+    C = state.gaussians.capacity
+    n = mesh.data * mesh.tile
+    if C % n:
+        raise ValueError(
+            f"the pool's capacity {C} does not divide over the {n} ranks of "
+            f"the ({mesh.data}, {mesh.tile}) mesh; the gauss-sharded state "
+            f"needs a multiple of {n}")
+    Cs = C // n
+    shards = []
+    for r, dev in enumerate(mesh.devices):
+        b = gauss_block(mesh, r)
+        rows = slice(b * Cs, (b + 1) * Cs)
+        g = state.gaussians._map(lambda x: _copy_to(x[rows], dev))
+        shards.append(TrainState(
+            gaussians=g, opt_state=_adam_copy(state.opt_state, dev, rows),
+            step=state.step, exposure=_copy_to(state.exposure, dev),
+            exp_opt_state=_adam_copy(state.exp_opt_state, dev)))
+    return GaussShardedState(shards)
+
+
+def _by_block(mesh: M.Mesh) -> List[int]:
+    """The ranks in the order of the blocks they hold."""
+    return sorted(range(mesh.data * mesh.tile),
+                  key=lambda r: gauss_block(mesh, r))
+
+
+def _gather_rows(xs: Sequence[torch.Tensor], mesh: M.Mesh,
+                 device) -> torch.Tensor:
+    """Per-rank row blocks `xs[r]` concatenated in global slot order on
+    `device`."""
+    return torch.cat([xs[r].to(device) for r in _by_block(mesh)])
+
+
+def _cat_gaussians(gs: Sequence[Gaussians], device) -> Gaussians:
+    """Row blocks of the pool concatenated on `device` (differentiable)."""
+    return Gaussians(**{f.name: torch.cat([getattr(g, f.name).to(device)
+                                           for g in gs])
+                        for f in dataclasses.fields(Gaussians)})
+
+
+def gather_gaussians(shards: Sequence[Gaussians], mesh: M.Mesh,
+                     device) -> Gaussians:
+    """The whole pool on `device` from its per-rank blocks."""
+    return _cat_gaussians([shards[r] for r in _by_block(mesh)], device)
+
+
+def gather_train_state(state: GaussShardedState, mesh: M.Mesh,
+                       device=None) -> TrainState:
+    """The inverse of `shard_train_state`, bit for bit: the whole state on
+    `device` (default the first rank's)."""
+    device = mesh.devices[0] if device is None else device
+    shards = state.shards
+    first = shards[0]
+    opt = first.opt_state
+    rows = lambda slot, k: _gather_rows(
+        [getattr(s.opt_state, slot)[k] for s in shards], mesh, device)
+    return TrainState(
+        gaussians=gather_gaussians([s.gaussians for s in shards], mesh,
+                                   device),
+        opt_state=AdamState(count=opt.count, sched_count=opt.sched_count,
+                            mu={k: rows("mu", k) for k in opt.mu},
+                            nu={k: rows("nu", k) for k in opt.nu}),
+        step=first.step, exposure=_copy_to(first.exposure, device),
+        exp_opt_state=_adam_copy(first.exp_opt_state, device))
+
+
+def make_gauss_sharded_train_step(config: TrainingConfig,
+                                  settings: RenderSettings, mesh: M.Mesh,
+                                  grads_only: bool = False) -> Callable:
+    """The train step over a gauss-sharded state: step(state, cameras,
+    cam_idx=None, sh_degree=None) -> (state', metrics), with the camera
+    batch of `make_sharded_train_step`.
+
+    For each data rank d: every rank (d, t) gathers the parameter rows of
+    ranks (d', t) over `data` (one contiguous block of slots), projects
+    them under camera d and adds the zero probe; the projected blocks are
+    gathered over `tile` (the global slot order), the bands render, and the
+    banded loss is taken; the loss is the mean over the cameras.  Autograd
+    through the gathers hands each rank the gradient of its own rows.  Each
+    rank then masks its dead rows and runs Adam on its rows where they live;
+    the exposure table gets the one gradient of the whole loss on every
+    rank, so its replicas stay equal.  The statistic buffers accumulate the
+    radius and visibility of each rank's own rows under its own data
+    camera, as the JAX package's gauss-sharded step does.  With
+    `grads_only` the step returns (the masked gradients gathered in global
+    slot order on the first rank's device, metrics) and updates nothing."""
+    band_h = _band_height(settings, mesh.tile)
+    W = settings.image_width
+    n_data, n_tile = mesh.data, mesh.tile
+
+    def step(state: GaussShardedState, cameras: Sequence[Camera],
+             cam_idx: Optional[Sequence[int]] = None,
+             sh_degree: Optional[int] = None):
+        if len(cameras) != n_data:
+            raise ValueError(f"the step takes {n_data} cameras, one per "
+                             f"rank of the data axis, got {len(cameras)}")
+        st = settings if sh_degree is None \
+            else settings.replace(sh_degree=sh_degree)
+        kw = _projection_kw(st)
+        shards = state.shards
+        Cs = shards[0].gaussians.capacity
+        home = mesh.devices[0]
+        params = [{k: v.detach().requires_grad_(True)
+                   for k, v in s.gaussians.params().items()} for s in shards]
+        probes = [torch.zeros(Cs, 2, dtype=torch.float32, device=dev,
+                              requires_grad=True) for dev in mesh.devices]
+        exposure = None
+        if shards[0].exposure is not None:
+            exposure = shards[0].exposure.detach().requires_grad_(True)
+        local = [s.gaussians.with_params(p) for s, p in zip(shards, params)]
+
+        totals, parts_all, n_live, n_dropped = [], [], [], []
+        radii, visible = [None] * len(shards), [None] * len(shards)
+        for d, camera in enumerate(cameras):
+            devices = mesh.tile_devices(d)
+            slices = []
+            with record_function("3dgs:projection"):
+                for t, dev in enumerate(devices):
+                    peers = [_rank_of(mesh, dd, t) for dd in range(n_data)]
+                    block = _cat_gaussians([local[r] for r in peers], dev)
+                    probe = torch.cat([probes[r].to(dev) for r in peers])
+                    proj = project_gaussians(block, camera.to(dev), **kw)
+                    proj = proj._replace(means2d=proj.means2d + probe)
+                    # this rank's own rows sit at position d of the block
+                    own = slice(d * Cs, (d + 1) * Cs)
+                    r = _rank_of(mesh, d, t)
+                    radii[r] = proj.radius[own].detach()
+                    visible[r] = proj.visible[own]
+                    slices.append(proj)
+                projs = _gather_projected(slices, devices)
+            outs = _render_bands(projs, st, band_h, devices)
+            total, parts = _band_loss(outs, camera, devices, band_h, W,
+                                      config, exposure,
+                                      None if cam_idx is None else cam_idx[d])
+            totals.append(total.to(home))
+            parts_all.append({k: v.detach().to(home)
+                              for k, v in parts.items()})
+            n_live += [o["n_live"] for o in outs]
+            n_dropped.append(sum(o["n_dropped"] for o in outs))
+        total = _camera_mean(totals)
+
+        n_params = len(params[0])
+        wrt = [v for p in params for v in p.values()] + probes
+        if exposure is not None:
+            wrt.append(exposure)
+        with record_function("3dgs:backward"):
+            grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
+        n_visible = sum(v.sum().to(home) for v in visible)
+        metrics = _step_metrics(parts_all, n_live, n_dropped, n_visible)
+        rank_grads = []
+        for r, dev in enumerate(mesh.devices):
+            own = list(grads_all[r * n_params:(r + 1) * n_params])
+            own.append(grads_all[len(params) * n_params + r])
+            if exposure is not None:
+                gr = grads_all[-1]
+                own.append(None if gr is None else gr.to(dev))
+            rank_grads.append(own)
+        if grads_only:
+            masked = [mask_dead_gradients(p, gr, s.gaussians.alive)
+                      for p, gr, s in zip(params, rank_grads, shards)]
+            return {k: _gather_rows([m[k] for m in masked], mesh, home)
+                    for k in masked[0]}, metrics
+        new = [apply_gradients(s, p, probe, s.exposure, gr, config, st,
+                               rad, vis)
+               for s, p, probe, gr, rad, vis in zip(
+                   shards, params, probes, rank_grads, radii, visible)]
+        return GaussShardedState(new), metrics
+
+    return step
+
+
+def make_gauss_sharded_render(settings: RenderSettings,
+                              mesh: M.Mesh) -> Callable:
+    """Inference renderer over a gauss-sharded pool: (shards, Camera) ->
+    the dict of `make_sharded_render`, with `shards[r]` rank r's Gaussians.
+    Each rank projects its own rows, one gather over every rank reassembles
+    the projected set in global slot order on the ranks of the tile axis,
+    the bands render and the image is assembled on the first rank's device.
+    The parameters are never gathered."""
+    devices = mesh.tile_devices(0)
+    band_h = _band_height(settings, mesh.tile)
+    kw = _projection_kw(settings)
+
+    def gauss_sharded_render(shards: Sequence[Gaussians],
+                             camera: Camera) -> dict:
+        with record_function("3dgs:projection"):
+            local = [project_gaussians(g, camera.to(dev), **kw)
+                     for g, dev in zip(shards, mesh.devices)]
+            projs = _gather_projected([local[r] for r in _by_block(mesh)],
+                                      devices)
+        outs = _render_bands(projs, settings, band_h, devices)
+        return _assemble(outs, devices[0], settings.ring)
+
+    return gauss_sharded_render
+
+
+def make_gauss_sharded_densify_step(config: TrainingConfig,
+                                    mesh: M.Mesh) -> Callable:
+    """Densify and prune over a gauss-sharded state: step(state, noise,
+    scene_extent, size_prune=False) -> (state', stats).  It gathers the
+    state on the device of `noise`, runs `train.trainer.densify_step` on it
+    (the global cumsum and nonzero that decide which free slots the
+    children fill; the Adam moments of every changed slot zeroed) and
+    splits the result again, so it equals the single-device densify of the
+    gathered state bit for bit."""
+    def densify(state: GaussShardedState, noise: torch.Tensor,
+                scene_extent: float, size_prune: bool = False):
+        whole = gather_train_state(state, mesh, noise.device)
+        whole, stats = densify_step(whole, noise, scene_extent, config,
+                                    size_prune)
+        return shard_train_state(whole, mesh), stats
+
+    return densify
+
+
+def verify_shard_grad_parity(config: TrainingConfig, mesh: M.Mesh,
+                             gauss_sharded: bool = False,
+                             tol: float = 0.05) -> float:
+    """One tiny step through the real sharded step factory (`grads_only`),
+    in either layout, against single-device autograd of `render` on the
+    mesh's first device: an image of mesh.tile bands of one 16-pixel tile
+    row and 16 columns, 8 slots per rank.  Returns the worst deviation of a
+    parameter's gradient, normalised by that gradient's largest entry;
+    raises RuntimeError above `tol`.  The band render runs the tile kernels
+    (their plain versions on CPU ranks)."""
+    n_tile, n_data = mesh.tile, mesh.data
+    ts = 16
+    H, W = n_tile * ts, ts
+    n = 8 * n_data * n_tile
+    dev = mesh.devices[0]
+    rng = np.random.default_rng(0)
+    xyz = np.concatenate([rng.uniform(-0.4, 0.4, (n, 2)),
+                          rng.uniform(1.0, 3.0, (n, 1))],
+                         axis=1).astype(np.float32)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    rotation = np.zeros((n, 4), np.float32)
+    rotation[:, 0] = 1.0
+    g = Gaussians(
+        xyz=as_t(xyz), features_dc=as_t(rng.uniform(-1, 1, (n, 1, 3))),
+        features_rest=as_t(np.zeros((n, 15, 3))),
+        scaling=as_t(np.full((n, 3), np.log(0.15))), rotation=as_t(rotation),
+        opacity=as_t(rng.uniform(-1, 1, (n, 1))),
+        alive=torch.ones(n, dtype=torch.bool, device=dev))
+    cam = Camera.create(0, np.eye(3, dtype=np.float32),
+                        np.asarray([0.0, 0.0, -1.0], np.float32), 1.2, 1.2,
+                        width=W, height=H, device=dev,
+                        image=rng.uniform(0, 1, (3, H, W)))
+    tiny = dataclasses.replace(
+        config, capacity=n, image_height=H, image_width=W,
+        use_exposure=False, tile_size=ts, mesh_data=n_data, mesh_tile=n_tile)
+    settings = RenderSettings(image_height=H, image_width=W, tile_size=ts)
+
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in g.params().items()}
+    total, _ = gaussian_loss(render(g.with_params(params), cam,
+                                    settings)["image"], cam.image,
+                             tiny.lambda_dssim)
+    ref = dict(zip(params, torch.autograd.grad(total, list(params.values()),
+                                               allow_unused=True)))
+
+    state = create_train_state(g, tiny)
+    if gauss_sharded:
+        step = make_gauss_sharded_train_step(tiny, settings, mesh,
+                                             grads_only=True)
+        state = shard_train_state(state, mesh)
+    else:
+        step = make_sharded_train_step(tiny, settings, mesh, grads_only=True)
+    grads, _ = step(state, [cam] * n_data)
+
+    worst, worst_key = 0.0, None
+    for k, a in ref.items():
+        a = torch.zeros_like(params[k]) if a is None else a
+        b = grads[k].to(a.device)
+        dev_k = float((a - b).abs().max() / (a.abs().max() + 1e-12))
+        if dev_k > worst:
+            worst, worst_key = dev_k, k
+    if worst > tol:
+        raise RuntimeError(
+            f"the sharded gradient reduction deviates from single-device "
+            f"autograd by {worst:.3g} (leaf {worst_key!r}, tol {tol}) on the "
+            f"({n_data}, {n_tile}) mesh, "
+            f"{'gauss-sharded' if gauss_sharded else 'replicated'} state: "
+            f"the step's reductions are wrong; do not train with it")
+    return worst
+

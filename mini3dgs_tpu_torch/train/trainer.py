@@ -13,9 +13,12 @@ and returns a new one, leaving its argument untouched.  PyTorch runs
 eagerly, so there is nothing to jit and a step is a plain function of
 (state, camera).  The JAX trainer's K-step device loop and its stream
 sizers work around static shapes and dispatch cost on the TPU and have no
-counterpart: the port's stream holds exactly the live instances.  The step
-over a mesh of ranks is parallel/sharded.make_sharded_train_step, which
-shares `apply_gradients`; `GaussianTrainer` does not drive it yet.
+counterpart: the port's stream holds exactly the live instances.  Over a
+(data, tile) mesh of ranks (`mesh_data * mesh_tile > 1`) `GaussianTrainer`
+drives the steps of parallel/sharded.py, which share `apply_gradients`,
+with the state replicated or, with `shard_gauss_state`, split over the
+ranks; the density-control steps and the capacity changes then run on the
+gathered state, which is split again after them.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ class TrainState:
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
+
+    @property
+    def capacity(self) -> int:
+        return self.gaussians.capacity
 
 
 def create_train_state(gaussians: Gaussians, config: TrainingConfig,
@@ -281,19 +288,18 @@ class GaussianTrainer:
         self.train_losses: List[float] = []
         self.val_losses: List[float] = []
         self._state_compacted = False
+        self.mesh = None
 
     # ------------------------------------------------------------------
     def setup(self, dataset=None, gaussians: Optional[Gaussians] = None):
         """Dataset (loaded from the config unless given) -> Gaussians from
         its point cloud (unless given) -> render settings -> scene extent
-        -> position-LR scaling -> train state."""
+        -> position-LR scaling -> train state; over a mesh (`mesh_data *
+        mesh_tile > 1`) the mesh, the gradient self-check
+        (`verify_sharding`) and the split of the state over the ranks
+        (`shard_gauss_state`).  The mesh's ranks are on the CPU when the
+        config says so, else on the visible cards."""
         cfg = self.config
-        if cfg.mesh_data * cfg.mesh_tile > 1:
-            raise ValueError(
-                f"mesh_data * mesh_tile = {cfg.mesh_data * cfg.mesh_tile}: "
-                "GaussianTrainer over a mesh is not ported yet (ROADMAP "
-                "section A, item 4); parallel/sharded.py has the sharded "
-                "step itself")
         if dataset is None and gaussians is None:
             dataset = load_dataset(cfg, self.device)
         self.dataset = dataset
@@ -327,7 +333,8 @@ class GaussianTrainer:
                 radius_max=cfg.radius_max, color_mode=cfg.color_mode,
                 sh_degree=0 if cfg.color_mode == "dc_sigmoid" else cfg.sh_degree,
                 antialias=cfg.antialias,
-                raster="tiles" if cfg.use_pallas else "golden")
+                raster="tiles" if cfg.use_pallas else "golden",
+                ring=cfg.ring_exchange)
         # Canonical scene extent: 1.1x the camera rig's largest distance
         # from its centre (the unit of the densify thresholds and of the
         # position-LR scaling); without cameras, the cloud's mean range.
@@ -341,12 +348,52 @@ class GaussianTrainer:
         n_cams = len(self.train_cameras()) if self.dataset is not None else 0
         self.state = create_train_state(gaussians, self.config,
                                         n_cameras=n_cams)
+        self.mesh = None
+        if cfg.mesh_data * cfg.mesh_tile > 1:
+            self._setup_mesh()
+
+    def _setup_mesh(self) -> None:
+        from ..parallel import sharded
+        from ..parallel.mesh import make_mesh
+        cfg = self.config
+        if self.settings.raster != "tiles":
+            raise ValueError("the band-sharded steps run the tile kernels: "
+                             "set use_pallas true to train over a mesh")
+        self.mesh = make_mesh(
+            cfg.mesh_data, cfg.mesh_tile,
+            [self.device] if self.device.type == "cpu" else None)
+        if cfg.verify_sharding:
+            sharded.verify_shard_grad_parity(
+                cfg, self.mesh, gauss_sharded=cfg.shard_gauss_state)
+        self._set_state(self.state)
+
+    @property
+    def _gauss_sharded(self) -> bool:
+        """True when the state is split over the mesh's ranks."""
+        from ..parallel.sharded import GaussShardedState
+        return isinstance(self.state, GaussShardedState)
+
+    def gathered_state(self) -> TrainState:
+        """The whole train state on the trainer's device (a gathered copy
+        when the state is split over the mesh's ranks)."""
+        if not self._gauss_sharded:
+            return self.state
+        from ..parallel.sharded import gather_train_state
+        return gather_train_state(self.state, self.mesh, self.device)
+
+    def _set_state(self, state: TrainState) -> None:
+        """Install a whole train state, split over the mesh's ranks when
+        the trainer keeps it sharded (`shard_gauss_state`)."""
+        if self.mesh is not None and self.config.shard_gauss_state:
+            from ..parallel.sharded import shard_train_state
+            state = shard_train_state(state, self.mesh)
+        self.state = state
 
     def train_cameras(self) -> Sequence[Camera]:
         return self.dataset.get_train_cameras() if self.dataset else []
 
     def get_scene_extent(self) -> float:
-        return float(scene_extent_of(self.state.gaussians))
+        return float(scene_extent_of(self.gathered_state().gaussians))
 
     # ------------------------------------------------------------------
     def active_sh_degree(self) -> int:
@@ -356,12 +403,37 @@ class GaussianTrainer:
         return min(self.iteration // self.config.sh_increase_interval,
                    self.config.sh_degree)
 
-    def train_step(self, camera: Camera, cam_idx: int = 0) -> Dict:
-        """One step at the active SH degree.  The metrics are tensors on the
-        device (the stream counters ints): reading one waits for it."""
-        self.state, metrics = train_step(
-            self.state, camera, self.config, self.settings, cam_idx,
-            sh_degree=self.active_sh_degree())
+    def train_step(self, camera, cam_idx=0) -> Dict:
+        """One step at the active SH degree.  Over a mesh `camera` is one
+        Camera per rank of the data axis (with `cam_idx` their indices into
+        the exposure table), or one Camera that every data rank trains.  The
+        metrics are tensors on the device (the stream counters ints):
+        reading one waits for it."""
+        deg = self.active_sh_degree()
+        if self.mesh is None:
+            self.state, metrics = train_step(
+                self.state, camera, self.config, self.settings, cam_idx,
+                sh_degree=deg)
+        else:
+            from ..parallel import sharded
+            n = self.mesh.data
+            batched = isinstance(camera, (list, tuple))
+            cams = list(camera) if batched else [camera] * n
+            if isinstance(cam_idx, (list, tuple, np.ndarray)):
+                idx = [int(i) for i in cam_idx]
+            elif self.config.use_exposure and batched and n > 1:
+                raise ValueError(
+                    f"use_exposure with {n} cameras needs a cam_idx per "
+                    f"camera, not the one index {cam_idx}: it would train "
+                    "that camera's exposure for every data rank")
+            else:
+                idx = [int(cam_idx)] * n
+            make = (sharded.make_gauss_sharded_train_step
+                    if self._gauss_sharded else
+                    sharded.make_sharded_train_step)
+            self.state, metrics = make(self.config, self.settings,
+                                       self.mesh)(self.state, cams, idx,
+                                                  sh_degree=deg)
         self.iteration += 1
         return metrics
 
@@ -376,16 +448,22 @@ class GaussianTrainer:
 
     def _maybe_compact_state(self) -> None:
         """Once the densify window closes the population no longer grows:
-        compact the pool once, if that saves at least a quarter of it."""
+        compact the pool once, if that saves at least a quarter of it.
+        Over a mesh the new capacity is rounded up to a multiple of the
+        ranks."""
         self._state_compacted = True
-        cap = self.state.gaussians.capacity
-        n = self.state.gaussians.num_alive()
+        state = self.gathered_state()
+        cap = state.gaussians.capacity
+        n = state.gaussians.num_alive()
         new_cap = compact_capacity(n)
+        if self.mesh is not None:
+            n_dev = self.mesh.data * self.mesh.tile
+            new_cap = -(-new_cap // n_dev) * n_dev
         if new_cap > 0.75 * cap:
             return
         print(f"[compact] densify window closed: pool {cap} -> {new_cap} "
               f"({n} alive)", flush=True)
-        self.state = compact_train_state(self.state, new_cap)
+        self._set_state(compact_train_state(state, new_cap))
 
     def train(self, iterations: Optional[int] = None,
               log_fn: Optional[Callable] = None) -> Dict:
@@ -393,38 +471,57 @@ class GaussianTrainer:
         the JAX trainer's order: densify (or prune), opacity reset,
         compaction, log, validation, checkpoint.  The camera of step i is
         the i-th draw of default_rng(config.seed), as in the JAX trainer
-        for a run from step 0; a resumed run continues the sequence (the
-        JAX trainer restarts it).  The host reads the device only at
-        densify, prune, compaction, log and validation events."""
+        for a run from step 0 (over a mesh, the cameras of step i are the
+        next `mesh_data` draws); a resumed run continues the sequence (the
+        JAX trainer restarts it).  On a sharded state densify runs through
+        parallel/sharded.make_gauss_sharded_densify_step, and prune,
+        growth and opacity reset on the gathered state, split again after
+        them.  The host reads the device only at densify, prune,
+        compaction, log and validation events."""
         cfg = self.config
         iterations = iterations or cfg.iterations
         cams = list(self.train_cameras())
+        n_data = self.mesh.data if self.mesh is not None else 1
         rng = np.random.default_rng(cfg.seed)
-        for _ in range(self.iteration):
+        for _ in range(self.iteration * n_data):
             rng.integers(len(cams))
         metrics = {}
         end = self.iteration + iterations
         while self.iteration < end:
             it = self.iteration + 1
-            cam_idx = int(rng.integers(len(cams)))
-            metrics = self.train_step(cams[cam_idx], cam_idx)
+            idxs = [int(rng.integers(len(cams))) for _ in range(n_data)]
+            if n_data == 1:
+                metrics = self.train_step(cams[idxs[0]], idxs[0])
+            else:
+                metrics = self.train_step([cams[i] for i in idxs], idxs)
             if density.should_densify(it, cfg):
                 # the canonical big-point prune starts after the first
                 # opacity reset
                 size_prune = 0 < cfg.opacity_reset_interval < it
-                cap = self.state.gaussians.capacity
-                self.state, dstats = densify_step(
-                    self.state, self._clone_noise(it, cap), self.scene_extent,
-                    cfg, size_prune)
+                cap = self.state.capacity
+                noise = self._clone_noise(it, cap)
+                if self._gauss_sharded:
+                    from ..parallel.sharded import \
+                        make_gauss_sharded_densify_step
+                    self.state, dstats = make_gauss_sharded_densify_step(
+                        cfg, self.mesh)(self.state, noise, self.scene_extent,
+                                        size_prune)
+                else:
+                    self.state, dstats = densify_step(
+                        self.state, noise, self.scene_extent, cfg,
+                        size_prune)
                 metrics.update(dstats)
                 if dstats["n_alive"] > 0.85 * cap:
-                    self.state = grow_capacity(self.state, 2 * cap)
+                    self._set_state(grow_capacity(self.gathered_state(),
+                                                  2 * cap))
             elif density.should_prune(it, cfg):
-                self.state, metrics["n_pruned"] = prune_step(self.state, cfg)
+                state, metrics["n_pruned"] = prune_step(self.gathered_state(),
+                                                        cfg)
+                self._set_state(state)
             if (cfg.opacity_reset_interval > 0
                     and it % cfg.opacity_reset_interval == 0
                     and it <= cfg.densify_until_iter):
-                self.state = reset_opacity_step(self.state)
+                self._set_state(reset_opacity_step(self.gathered_state()))
             if (cfg.compact_after_densify and not self._state_compacted
                     and 0 < cfg.densify_until_iter <= it):
                 self._maybe_compact_state()
@@ -439,42 +536,77 @@ class GaussianTrainer:
         return metrics
 
     # ------------------------------------------------------------------
+    def _mesh_render_fn(self, st: RenderSettings) -> Optional[Callable]:
+        """The band-sharded renderer of the mesh for settings `st` (over
+        the split pool when the state is sharded), or None without a mesh
+        or when `st`'s height does not split into the bands."""
+        if self.mesh is None or \
+                st.image_height % (self.mesh.tile * st.tile_size):
+            return None
+        from ..parallel import sharded
+        if self._gauss_sharded:
+            fn = sharded.make_gauss_sharded_render(st, self.mesh)
+            return lambda cam: fn([s.gaussians for s in self.state.shards],
+                                  cam)
+        fn = sharded.make_sharded_render(st, self.mesh)
+        return lambda cam: fn(self.state.gaussians, cam)
+
     @torch.no_grad()
     def validate(self) -> Dict[str, float]:
         """Mean PSNR and SSIM over the test split (each view rendered at
-        its own size), read back once for all views."""
+        its own size), read back once for all views.  Over a mesh a view
+        renders band-sharded, or, when its height does not split into the
+        bands, on one device."""
         cams = self.dataset.get_test_cameras() if self.dataset else []
         if not cams:
             return {}
         psnrs, ssims = [], []
+        whole = None
         for cam in cams:
             st = self.settings
             if (cam.height != st.image_height or cam.width != st.image_width):
                 st = st.replace(image_height=cam.height, image_width=cam.width)
-            image = render(self.state.gaussians, cam, st)["image"]
+            mesh_render = self._mesh_render_fn(st)
+            if mesh_render is not None:
+                image = mesh_render(cam)["image"]
+            else:
+                if whole is None:
+                    whole = self._gathered_gaussians()
+                image = render(whole, cam, st)["image"]
             psnrs.append(psnr(image, cam.image))
             ssims.append(ssim(image, cam.image))
         return {"psnr": float(np.mean(torch.stack(psnrs).tolist())),
                 "ssim": float(np.mean(torch.stack(ssims).tolist()))}
 
+    def _gathered_gaussians(self) -> Gaussians:
+        if not self._gauss_sharded:
+            return self.state.gaussians
+        from ..parallel.sharded import gather_gaussians
+        return gather_gaussians([s.gaussians for s in self.state.shards],
+                                self.mesh, self.device)
+
     def save_checkpoint(self, iteration: int) -> None:
+        """A sharded state is written gathered, in the layout of a
+        single-device checkpoint: either kind of run loads the other's."""
         from .checkpoint import save_checkpoint
-        save_checkpoint(self.config.output_path, iteration, self.state,
+        save_checkpoint(self.config.output_path, iteration,
+                        self.gathered_state(),
                         extra={"compacted": int(self._state_compacted)})
 
     def load_checkpoint(self, iteration: int) -> None:
         """Resume from the checkpoint of `iteration`, whatever its pool's
         capacity: a pool smaller than this trainer's (compacted) or a run
         that had already passed its compaction check is not compacted
-        again."""
+        again.  A trainer over a mesh with `shard_gauss_state` splits the
+        loaded state over its ranks."""
         from .checkpoint import load_checkpoint
         state, extra = load_checkpoint(self.config.output_path, iteration,
                                        self.device)
-        cap = self.state.gaussians.capacity if self.state else None
+        cap = self.state.capacity if self.state is not None else None
         if cap is not None and state.gaussians.capacity < cap:
             print(f"[load_checkpoint] compacted checkpoint: {cap} -> "
                   f"{state.gaussians.capacity} slots", flush=True)
             self._state_compacted = True
         self._state_compacted |= bool(extra.get("compacted", 0))
-        self.state = state
+        self._set_state(state)
         self.iteration = state.step

@@ -8,6 +8,7 @@ import json
 from pathlib import Path
 
 import pytest
+import torch
 import yaml
 
 from mini3dgs_tpu import config as jconfig
@@ -122,18 +123,50 @@ def test_json_config_is_accepted(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("shard_gauss_state", True), ("ring_reshard", True), ("ring_local", True),
-    ("ring_reshard_capacity", 64), ("verify_sharding", False)])
+    ("ring_reshard", True), ("ring_local", True),
+    ("ring_reshard_capacity", 64)])
 def test_route_keys_not_ported_raise(tmp_path, key, value):
     path = tmp_path / "cfg.yaml"
     path.write_text(f"tpu:\n  {key}: {json.dumps(value)}\n")
-    with pytest.raises(ValueError, match="item 4"):
+    with pytest.raises(ValueError, match="ring v2 / v3.*item 4"):
         tconfig.ConfigManager.load_from_yaml(str(path))
     # at its JAX default the key is accepted
     path.write_text(f"tpu:\n  {key}: "
                     f"{json.dumps(tconfig.ROUTE_KEYS[key])}\n")
     assert tconfig.ConfigManager.load_from_yaml(str(path)) == \
         tconfig.TrainingConfig()
+
+
+@pytest.mark.parametrize("key,value", [("shard_gauss_state", True),
+                                       ("verify_sharding", False)])
+def test_mesh_keys_load_and_reach_the_trainer(tmp_path, key, value,
+                                              monkeypatch):
+    """`shard_gauss_state` and `verify_sharding` read from YAML as the JAX
+    package reads them, and a trainer over a (1, 2) mesh acts on them: the
+    state is split over the ranks, the setup's gradient self-check runs or
+    not."""
+    from mini3dgs_tpu_torch.data.dataset import RandomDataset
+    from mini3dgs_tpu_torch.parallel import sharded
+    from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
+    path = tmp_path / "cfg.yaml"
+    path.write_text(f"tpu:\n  {key}: {json.dumps(value)}\n  mesh_tile: 2\n"
+                    "  capacity: 256\nsystem:\n  device: cpu\n")
+    cfg = tconfig.ConfigManager.load_from_yaml(str(path))
+    want = jconfig.ConfigManager.load_from_yaml(str(path))
+    assert getattr(cfg, key) == getattr(want, key) == value
+    checks = []
+    verify = sharded.verify_shard_grad_parity
+    monkeypatch.setattr(sharded, "verify_shard_grad_parity",
+                        lambda *a, **kw: checks.append(kw) or verify(*a, **kw))
+    ds = RandomDataset(n_cameras=2, width=32, height=32)
+    ds.load_cameras()
+    t = GaussianTrainer(cfg)
+    t.setup(dataset=ds)
+    assert (t.mesh.data, t.mesh.tile) == (1, 2)
+    assert isinstance(t.state, sharded.GaussShardedState) == \
+        cfg.shard_gauss_state
+    assert checks == ([{"gauss_sharded": cfg.shard_gauss_state}]
+                      if cfg.verify_sharding else [])
 
 
 def test_shape_only_keys_are_reported(tmp_path, capsys):
@@ -156,7 +189,33 @@ def test_shape_only_keys_are_reported(tmp_path, capsys):
 
 
 def test_trainer_refuses_a_mesh():
+    """A mesh is set up now (over CPU ranks when the config says cpu), but
+    the trainer refuses one that the gauss-sharded pool cannot split over
+    (a capacity that is no multiple of the ranks, with the numbers) and one
+    whose band render would need the golden raster."""
+    from mini3dgs_tpu_torch.data.dataset import RandomDataset
     from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
-    t = GaussianTrainer(tconfig.TrainingConfig(device="cpu", mesh_tile=2))
-    with pytest.raises(ValueError, match="item 4"):
-        t.setup()
+    ds = RandomDataset(n_cameras=2, width=32, height=32)
+    ds.load_cameras()
+    kw = dict(device="cpu", mesh_data=2, mesh_tile=2, verify_sharding=False)
+    t = GaussianTrainer(tconfig.TrainingConfig(capacity=256, **kw))
+    t.setup(dataset=ds)
+    assert t.mesh.devices == (torch.device("cpu"),) * 4
+    t = GaussianTrainer(tconfig.TrainingConfig(capacity=256, **kw,
+                                               shard_gauss_state=True))
+    t.setup(dataset=ds)
+    # the random cloud's 2,000 points take a pool of 2048 slots
+    assert [s.gaussians.capacity for s in t.state.shards] == [512] * 4
+    t = GaussianTrainer(tconfig.TrainingConfig(capacity=254, **kw,
+                                               shard_gauss_state=True))
+    with pytest.raises(ValueError, match="254 does not divide over the 4"):
+        t.setup(dataset=ds, gaussians=t_pool(254))
+    t = GaussianTrainer(tconfig.TrainingConfig(use_pallas=False, **kw))
+    with pytest.raises(ValueError, match="use_pallas"):
+        t.setup(dataset=ds)
+
+
+def t_pool(capacity):
+    from mini3dgs_tpu_torch import convert
+    p, a, _ = convert.flagship_scene_numpy(capacity, 100, seed=0)
+    return convert.gaussians_from_numpy(p, a)

@@ -69,3 +69,37 @@ def test_entry_points_default_to_the_card():
         main_torch.main(["--iterations", "1"])
     with pytest.raises(RuntimeError, match="cpu"):
         load_script("export_ply_torch").main(["--output", "unused"])
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one thread for a test whose tensors are small: the test
+    run's other workers need the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_main_over_a_mesh(tmp_path, capsys, one_torch_thread):
+    """`--mesh-data 2 --mesh-tile 2` with a config that sets
+    `shard_gauss_state: true` trains (the setup's gradient self-check
+    included), writes a single-device checkpoint, and resumes from it
+    (the smoke config at 64x64)."""
+    cfg = tmp_path / "mesh.yaml"
+    cfg.write_text(Path(SMOKE).read_text().replace(
+        "  use_pallas: true\n", "  use_pallas: true\n"
+        "  shard_gauss_state: true\n").replace(
+        "image_height: 128\n  image_width: 128", "image_height: 64\n"
+        "  image_width: 64"))
+    out = str(tmp_path / "run")
+    argv = ["--config", str(cfg), "--output", out, "--device", "cpu",
+            "--mesh-data", "2", "--mesh-tile", "2"]
+    assert main_torch.main(argv + ["--iterations", "5"]) == 0
+    log = capsys.readouterr().out
+    assert re.search(r"^\[\s+5\] l1=.* total_loss=.* n_clone=", log, re.M)
+    assert re.search(r"^final: psnr=([\d.]+) ssim=([\d.]+)$", log, re.M)
+    state, _ = tckpt.load_checkpoint(out, 5)
+    assert state.step == 5 and state.gaussians.capacity % 4 == 0
+    assert main_torch.main(argv + ["--resume", "5", "--iterations", "1"]) == 0
+    assert tckpt.latest_checkpoint_iteration(out) == 6

@@ -86,7 +86,8 @@ def _module_imports(path: Path):
 # The JAX-side scripts the port copies what it needs from (the port keeps
 # its own copy: scripts/*_torch.py and mini3dgs_tpu_torch/data/synthetic.py).
 JAX_SIDE_SCRIPTS = ("make_synthetic_scene", "export_colmap_scene",
-                    "preprocess", "train_path_parity")
+                    "preprocess", "train_path_parity", "train_1m",
+                    "train_probe", "__graft_entry__")
 
 
 def test_port_imports_no_jax():
