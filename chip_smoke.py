@@ -40,7 +40,14 @@ their plain versions on its own tile-16 launches (a band's tile rows, the
 ring step's (band, range) launches).  Last, `scripts/train_1m_torch.py` (1M Gaussians, a 2^20
 pool, 800x800, on a Blender scene made here; B1 and B2 held against their
 plain versions on its stream) and `scripts/train_probe_torch.py` (256x256,
-300 steps).  Any failure raises; nothing falls back to the CPU.
+300 steps).  Last, ring v2 and v3 and the band route's sharded candidate
+sort (phase 18): the three ring routes' renders bitwise equal and one step
+of each against ring v1 at phase 11's setting, with their times, launches
+and peak memory; the kernels with t0 against their plain versions on ring
+v3's launches; the sharded sort against the single-device binning of every
+band and the kernels without t0 on its heaviest band; `main_torch.py` over
+a (1, 2) mesh through ring v3 and ring v2.  Any failure raises; nothing
+falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -57,6 +64,7 @@ import tempfile
 import time
 import zlib
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -464,25 +472,39 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def ring_step_launches(rc, proj, target, n_rk: int, ts: int, size: int):
+def ring_step_launches(rc, proj, target, n_rk: int, ts: int, size: int,
+                       gid_sharded: bool = False):
     """The n_rk x n_rk raster launches of one ring step on the projected
     scene `proj` of a size x size view at tile `ts`, as the step makes them:
     the transmittance chained forward through each band's depth ranges and
-    the loss's own cotangent (towards `target`) chained backward.  Returns
-    dictionaries keyed by (band, range): `segs` (stream, tile_start,
-    tile_count), `t_in` the incoming transmittance, `acc_seg` the forward
-    accumulators, `g_in` their cotangent; and the cotangent `g_acc` of the
-    whole image's accumulators."""
+    the loss's own cotangent (towards `target`) chained backward; with
+    `gid_sharded` the origins of ring v3 (each rank's gid block of `proj`,
+    the distributed ranks, the reshard, the origin binning of rank-local
+    rows).  Returns dictionaries keyed by (band, range): `segs` (stream,
+    tile_start, tile_count), `t_in` the incoming transmittance, `acc_seg`
+    the forward accumulators, `g_in` their cotangent; and the cotangent
+    `g_acc` of the whole image's accumulators."""
     from mini3dgs_tpu_torch.core.loss import gaussian_loss
-    from mini3dgs_tpu_torch.ops.binning import (bin_gaussians_ring_origin,
-                                                pack_instances)
+    from mini3dgs_tpu_torch.ops import binning as B
+    from mini3dgs_tpu_torch.parallel import ring
     dev = target.device
     P, tiles_x = ts * ts, size // ts
     ntb = (size // ts // n_rk) * tiles_x
+    C = proj.means2d.shape[0]
+    Cs = C // n_rk
+    if gid_sharded:
+        local = ring._rank_local_rows(
+            [B.slice_rows(proj, slice(i * Cs, (i + 1) * Cs))
+             for i in range(n_rk)], [dev] * n_rk)
     segs = {}
     for r in range(n_rk):
-        rb = bin_gaussians_ring_origin(proj, size, size, ts, r, n_rk)
-        packed = pack_instances(rc.instance_attrs(proj), rb)
+        if gid_sharded:
+            rb = B.bin_gaussians_ring_origin_resharded(
+                local[r], r * Cs, C, size, size, ts, n_rk)
+            packed = B.pack_instances(rc.instance_attrs(local[r]), rb)
+        else:
+            rb = B.bin_gaussians_ring_origin(proj, size, size, ts, r, n_rk)
+            packed = B.pack_instances(rc.instance_attrs(proj), rb)
         for b in range(n_rk):
             segs[b, r] = (
                 packed[:, rb.seg_start[b]:rb.seg_start[b + 1]].contiguous(),
@@ -557,13 +579,16 @@ def gate_ring_step(rc, segs, t_in, acc_seg, g_in, tiles_x: int, ts: int,
 def mesh_kernel_gates(rc, tr, cam, size: int, ring: bool) -> dict:
     """Phase 16 (c) and (d): the kernels at the mesh run's own shapes, on
     the trained state's stream of `cam` at tile 16, against their plain
-    versions.  Without `ring`: the last band's tile rows of the whole
-    image's stream (`tile0` its first tile), as `_render_bands` launches
-    them: B1 within `gate_acc`, B2 within `gate_rows` under a seeded
-    cotangent.  With `ring`: every launch of one ring step over the mesh's
-    tile axis (`ring_step_launches`, the loss's own cotangent towards
-    `cam.image`), within `gate_ring_step`.  Returns the largest errors,
-    the instances the kernels took and, on the card, their ms."""
+    versions.  Without `ring`: the last band's stream as `_render_bands`
+    launches it, from the sharded candidate sort over the mesh's tile axis
+    (`bin_gaussians_sharded`, tile ranges local to the band, `tile0` its
+    first tile): B1 within `gate_acc`, B2 within `gate_rows` under a
+    seeded cotangent.  With `ring`: every launch of one ring step over the
+    mesh's tile axis (`ring_step_launches`, the loss's own cotangent
+    towards `cam.image`), within `gate_ring_step`.  Returns the largest
+    errors, the instances the kernels took and, on the card, their ms."""
+    from mini3dgs_tpu_torch.ops import binning as B
+    from mini3dgs_tpu_torch.parallel.sharded import bin_gaussians_sharded
     ts, n = MESH_TILE_SIZE, tr.mesh.tile
     tiles_x = size // ts
     ntb = size // ts // n * tiles_x
@@ -575,10 +600,11 @@ def mesh_kernel_gates(rc, tr, cam, size: int, ring: bool) -> dict:
                                     ts, ntb, tag=f"tile{ts} ")
         return {"fwd_t0_err": err3, "bwd_t0_err": err4, "launches": len(segs),
                 "instances": sum(seg[0].shape[1] for seg in segs.values())}
-    b, stream = rc.tile_stream(proj, size, size, ts)
+    dev = proj.means2d.device
+    b = bin_gaussians_sharded([proj] * n, size // n, size, ts, [dev] * n)[-1]
+    stream = B.pack_instances(rc.instance_attrs(proj), b)
     lo = (n - 1) * ntb
-    fargs = (stream, b.tile_start[lo:lo + ntb], b.tile_count[lo:lo + ntb],
-             tiles_x, ts)
+    fargs = (stream, b.tile_start, b.tile_count, tiles_x, ts)
     kw = dict(tile0=lo)
     name = f"tile{ts} band{n - 1}"
     acc = rc.raster_fwd(*fargs, **kw)
@@ -587,8 +613,7 @@ def mesh_kernel_gates(rc, tr, cam, size: int, ring: bool) -> dict:
     bwd_err = gate_rows(rc.raster_bwd(*bargs, **kw),
                         rc.raster_bwd_plain(*bargs, **kw), name)
     res = {"fwd_err": fwd_err, "bwd_err": bwd_err, "tile0": lo,
-           "instances": int(b.tile_count[lo:lo + ntb].sum()),
-           "stream": b.n_live, "heaviest": int(b.tile_count[lo:lo + ntb].max())}
+           "instances": b.n_live, "heaviest": int(b.tile_count.max())}
     if stream.is_cuda:
         res["ms"] = (
             cuda_ms(lambda: rc.raster_fwd(*fargs, **kw, ranges_checked=True)),
@@ -679,12 +704,14 @@ def parse_log(text: str) -> dict:
 class MethodTimes:
     """Wraps methods of a class so that each call is timed on the host
     clock up to a device synchronise; `self` of the first wrapped method's
-    calls is kept in `objects`.  Restores the methods on exit."""
+    calls is kept in `objects`, each method's first return value in
+    `first`.  Restores the methods on exit."""
 
     def __init__(self, cls, names, device):
         self.cls, self.names, self.device = cls, names, device
         self.times = {n: [] for n in names}
         self.objects = []
+        self.first = {}      # each method's first return value
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -701,6 +728,7 @@ class MethodTimes:
                 out = self.saved[_n](obj, *a, **kw)
                 self._sync()
                 self.times[_n].append(time.perf_counter() - t0)
+                self.first.setdefault(_n, out)
                 return out
             setattr(self.cls, n, wrapper)
         return self
@@ -1114,21 +1142,25 @@ def project_with(g, cam, settings):
 
 
 def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
-                     ring: bool) -> dict:
+                     ring: bool, overrides: dict | None = None,
+                     gate_kernels: bool = True) -> dict:
     """Phase 16 (c), and with `ring` (d): `main_torch.main` trains a COLMAP
     scene of `g` (written as phase 13 writes it) with
     configs/sdf_tex_30k.yaml's rendering and pool at tile 16 over a mesh
     with `shard_gauss_state`: (2, 2) for 16 steps, or with
     `ring_exchange` (1, 2) for 8 steps; densify, opacity reset and the
-    compaction at 8, prunes at 6 (and 12), SH unlocked every 4.  Gates: the
-    launches of each kernel build; a densify event and one compaction to a
-    multiple of the ranks; the loss falls over each stretch no event
-    interrupts; the mesh `validate` image equals the single-device render
-    of the gathered state (the forward gate); the kernels of the run's
-    route hold against their plain versions on its tile-16 launches of the
-    trained state (`mesh_kernel_gates`); the checkpoint the run wrote
-    loads bit for bit and splits again shard for shard; and (without
-    `ring`) `--resume` runs on.  Raises on any check that fails."""
+    compaction at 8, prunes at 6 (and 12), SH unlocked every 4.  Phase 18
+    (c) sets the ring's route keys in `overrides` (and the replicated state
+    with `shard_gauss_state: False`).  Gates: the launches of each kernel
+    build; a densify event and one compaction to a multiple of the ranks;
+    the loss falls over each stretch no event interrupts; the mesh
+    `validate` image equals the single-device render of the gathered state
+    (the forward gate); with `gate_kernels` the kernels of the run's route
+    hold against their plain versions on its tile-16 launches of the
+    trained state (`mesh_kernel_gates`); the checkpoint the run wrote loads
+    bit for bit and (for a split state) splits again shard for shard; and
+    (without `ring`) `--resume` runs on.  Returns the first step's loss
+    among the rest.  Raises on any check that fails."""
     import main_torch
     from mini3dgs_tpu_torch.config import ConfigManager
     from mini3dgs_tpu_torch.core.gaussians import compact_capacity
@@ -1158,6 +1190,8 @@ def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
         prune_interval=6, opacity_reset_interval=8, sh_increase_interval=4,
         mesh_data=n_data, mesh_tile=n_tile, shard_gauss_state=True,
         ring_exchange=ring, device=dev.type)
+    cfg = dataclasses.replace(cfg, **(overrides or {}))
+    split = cfg.shard_gauss_state
     if out.exists():
         shutil.rmtree(out)
     cfg_path = workdir / "mesh_config.yaml"
@@ -1188,14 +1222,15 @@ def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
         raise AssertionError(f"main_torch over a mesh failed: rc {code}\n"
                              f"{text}")
     n_dev = n_data * n_tile
-    if not isinstance(tr.state, sharded.GaussShardedState) or \
-            len(tr.state.shards) != n_dev:
-        raise AssertionError("the trainer's state is not split over the mesh")
+    if split != isinstance(tr.state, sharded.GaussShardedState) or (
+            split and len(tr.state.shards) != n_dev):
+        raise AssertionError("the trainer's state is not laid out as "
+                             f"shard_gauss_state={split} asks")
     if not any(log[it].get("n_split", 0) + log[it].get("n_clone", 0) > 0
                for it in log):
         raise AssertionError(f"no densify event split or cloned: {log}")
     alive_at = int(compacts[0].split("(")[1].split()[0]) if compacts else 0
-    pool = tr.state.capacity
+    pool = tr.gathered_state().gaussians.capacity
     want_pool = -(-compact_capacity(alive_at) // n_dev) * n_dev
     if len(compacts) != 1 or pool != want_pool or pool % n_dev:
         raise AssertionError(f"compaction: {compacts}, pool {pool}")
@@ -1229,12 +1264,13 @@ def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
         img_one = render(tr.gathered_state().gaussians, cam,
                          tr.settings)["image"]
     val_err = gate(img_mesh, img_one, "mesh validate image")
-    kernels = mesh_kernel_gates(rc, tr, cam, size, ring)
+    kernels = mesh_kernel_gates(rc, tr, cam, size, ring) if gate_kernels \
+        else None
     # The checkpoint of the last step: the gathered state bit for bit, and
     # split again shard for shard.
     whole = tr.gathered_state()
     loaded, _ = ckpt.load_checkpoint(str(out), steps, dev)
-    resplit = sharded.shard_train_state(loaded, tr.mesh)
+    resplit = sharded.shard_train_state(loaded, tr.mesh) if split else None
     same = loaded.step == whole.step and all(
         torch.equal(getattr(loaded.gaussians, k), getattr(whole.gaussians, k))
         for k in ("xyz", "features_dc", "features_rest", "scaling",
@@ -1245,12 +1281,14 @@ def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
         for k in whole.opt_state.mu) and all(
         torch.equal(x.gaussians.xyz, y.gaussians.xyz)
         and torch.equal(x.opt_state.nu["xyz"], y.opt_state.nu["xyz"])
-        for x, y in zip(resplit.shards, tr.state.shards))
+        for x, y in (zip(resplit.shards, tr.state.shards) if split else ()))
     if not same:
         raise AssertionError("the checkpoint does not load bit for bit")
     res = {"mesh": [n_data, n_tile], "ring": ring, "steps": steps,
+           "first_loss": float(run.first["train_step"]["total_loss"]),
+           "overrides": overrides or {},
            "launches": run.launches, "compaction": compacts[0], "pool": pool,
-           "n_alive": tr.state.num_alive(),
+           "n_alive": tr.gathered_state().gaussians.num_alive(),
            "log": {it: {k: log[it][k] for k in (
                "total_loss", "n_split", "n_clone", "n_pruned", "n_alive",
                "render_instances") if k in log[it]} for it in its},
@@ -1272,6 +1310,269 @@ def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
             raise AssertionError(f"the resumed run failed: {resume.launches}"
                                  f"\n{text}")
         res["launches_resume"] = resume.launches
+    return res
+
+
+def traced(step, n: int) -> dict:
+    """Device busy ms and kernel launches a call of `step` (n calls under
+    `torch.profiler`), with the `3dgs:*` ranges' device ms, launches and
+    host ms under the profiler (scripts/profile_step_torch.py's
+    `analyse_sharded`; the backward's range holds its host time only)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof_mod = load_script("profile_step_torch")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    t = prof_mod.analyse_sharded(prof.events(), n)
+    traced.seconds += time.perf_counter() - t0
+    return {"device_busy_ms": t["device_busy_ms_per_step"],
+            "kernel_launches": t["kernel_launches_per_step"],
+            "ms_under_profiler": wall,
+            "stages": {k: {m: round(v[m], 4) for m in (
+                "device_ms", "launches", "host_ms_profiled") if m in v}
+                for k, v in t["stages"].items()}}
+
+
+traced.seconds = 0.0   # spent in traced() calls, trace reading included
+
+
+def ring_routes_phase(rc, dev, state, config, settings, cam) -> dict:
+    """Phase 18 (a) and (b) on the trained ring state `state` (phase 11's
+    pool of RING_CAPACITY over RING_RANKS ranks on the card, 800^2, tile
+    32), with `cam` and its target.
+
+    (a) Ring v1, v2 (`ring_reshard`, replicated state) and v3 (`ring_local`,
+    the state split over a (1, 5) mesh): the three renders of the same
+    projected sets bitwise equal; one train step of each from the state
+    (v2 / v3 against v1: loss rtol 1e-5, xyz atol 2e-5), each with the
+    counts set to 0 just before it and read just after; B3 / B4 against
+    their plain versions on v3's 25 launches (`gate_ring_step`); per route
+    the host ms of 5 steps, the peak device memory of one step and, under
+    `torch.profiler`, device busy ms and launches a step with the ring's
+    stages.
+    (b) The band route's sharded candidate sort: for every band, exactly
+    the single-device binning restricted to the band; B1 / B2 against their
+    plain versions on the heaviest band's sharded stream (`gate_acc`,
+    `gate_rows`); one band-route step with the counts set to 0 (one B1 and
+    one B2 a band), and the binning alone both
+    ways (the sharded sort, and every rank binning and packing the whole
+    image, the route's reference), and the band-route step both ways: the
+    same loss, host ms in turns, device busy ms and launches.  Raises on
+    any check that fails."""
+    from mini3dgs_tpu_torch.ops import binning as B
+    from mini3dgs_tpu_torch.parallel import ring, sharded
+    from mini3dgs_tpu_torch.parallel.mesh import make_mesh
+
+    n, ts, size = RING_RANKS, 32, VIEW_SIZE
+    mesh = make_mesh(1, n, devices=[dev])
+    devices = mesh.tile_devices(0)
+    band_h, tiles_x = size // n, size // ts
+    ntb = band_h // ts * tiles_x
+    C = state.gaussians.capacity
+    Cs = C // n
+
+    def counts():
+        return (rc.raster_fwd.launches, rc.raster_bwd.launches,
+                rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+
+    def zero_counts():
+        for f in (rc.raster_fwd, rc.raster_bwd):
+            f.launches = f.launches_t0 = 0
+
+    # ---- (a) the renders: the same projected sets through each route ----
+    with torch.no_grad():
+        projs = sharded._project([state.gaussians] * n, [cam] * n, settings,
+                                 devices)
+        own = [B.slice_rows(p, slice(i * Cs, (i + 1) * Cs))
+               for i, p in enumerate(projs)]
+        bands = {route: ring.ring_rasterize_bands(
+            ps, band_h, size, settings.bg_color, devices, tile_size=ts, **kw)
+            for route, ps, kw in (("v1", projs, {}),
+                                  ("v2", projs, {"reshard": True}),
+                                  ("v3", own, {"gid_sharded": True}))}
+    for route in ("v2", "v3"):
+        for b in range(n):
+            for k in ("image", "alpha", "depth", "seg_live"):
+                a, w = bands[route][b][k], bands["v1"][b][k]
+                if not (torch.equal(a, w) if torch.is_tensor(a) else a == w):
+                    raise AssertionError(f"ring {route} band {b}: {k} is not "
+                                         "v1's")
+
+    # ---- (a) one step of each route, then its times and memory ----------
+    r_set = settings.replace(ring=True)
+    routes = {
+        "v1": (sharded.make_sharded_train_step(config, r_set, mesh), state),
+        "v2": (sharded.make_sharded_train_step(
+            config, r_set.replace(ring_reshard=True), mesh), state),
+        "v3": (sharded.make_gauss_sharded_train_step(
+            config, r_set.replace(ring_local=True), mesh),
+            sharded.shard_train_state(state, mesh))}
+    # a CPU rehearsal launches nothing
+    on_card = dev.type == "cuda"
+    per_step = (0, 0, n * n, n * n) if on_card else (0, 0, 0, 0)
+    res = {"routes": {}}
+    for route, (step, st0) in routes.items():
+        torch.cuda.synchronize()
+        zero_counts()
+        new, m = step(st0, [cam])
+        torch.cuda.synchronize()
+        launches = counts()
+        if launches != per_step or m["reshard_drops"] != 0:
+            raise AssertionError(f"ring {route}: launches {launches} "
+                                 f"(expected {per_step}), reshard drops "
+                                 f"{m['reshard_drops']}")
+        if route == "v3":
+            new = sharded.gather_train_state(new, mesh)
+        res["routes"][route] = {"launches": launches, "step_ms": [],
+                                "loss": float(m["total_loss"]),
+                                "xyz": new.gaussians.xyz}
+    # Host times in turns (v1 v2 v3 v3 v2 v1 ...), each route training on
+    # from its own state.
+    states = {route: st0 for route, (_, st0) in routes.items()}
+    for rep in range(6):
+        for route in (list(routes) if rep % 2 == 0 else list(routes)[::-1]):
+            t0 = time.perf_counter()
+            states[route], _ = routes[route][0](states[route], [cam])
+            torch.cuda.synchronize()
+            res["routes"][route]["step_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+    for route, (step, st0) in routes.items():
+        row = res["routes"][route]
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        step(st0, [cam])
+        torch.cuda.synchronize()
+        row.update(step_ms_median=float(np.median(row["step_ms"])),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   peak_bytes_above_start=(
+                       torch.cuda.max_memory_allocated(dev) - base),
+                   **traced(lambda: step(st0, [cam]), 1))
+    v1 = res["routes"]["v1"]
+    for route in ("v2", "v3"):
+        row = res["routes"][route]
+        row["loss_rel"] = abs(row["loss"] / v1["loss"] - 1.0)
+        row["xyz_max"] = float((row["xyz"] - v1["xyz"]).abs().max())
+        if row["loss_rel"] > 1e-5 or row["xyz_max"] > 2e-5:
+            raise AssertionError(f"ring {route}'s step against v1's: loss "
+                                 f"rel {row['loss_rel']:.3e}, xyz "
+                                 f"{row['xyz_max']:.3e}")
+    for row in res["routes"].values():
+        del row["xyz"]
+
+    # ---- (a) B3 / B4 on v3's 25 launches --------------------------------
+    segs, t_in, acc_seg, g_in, _ = ring_step_launches(
+        rc, project_with(state.gaussians, cam, settings), cam.image, n, ts,
+        size, gid_sharded=True)
+    res["fwd_t0_err"], res["bwd_t0_err"] = gate_ring_step(
+        rc, segs, t_in, acc_seg, g_in, tiles_x, ts, ntb, tag="v3 ")
+    res["v3_instances"] = sum(seg[0].shape[1] for seg in segs.values())
+
+    # ---- (b) the sharded candidate sort ---------------------------------
+    with torch.no_grad():
+        bins = sharded.bin_gaussians_sharded(projs, band_h, size, ts,
+                                             devices)
+        single = B.bin_gaussians(projs[0], size, size, ts)
+    for i, b in enumerate(bins):
+        tiles = slice(i * ntb, (i + 1) * ntb)
+        lo = int(single.tile_start[tiles][0])
+        want = (single.s_rank[lo:lo + b.n_live],
+                single.tile_start[tiles] - lo, single.tile_count[tiles])
+        if not (b.n_live == int(single.tile_count[tiles].sum()) and all(
+                torch.equal(x, y) for x, y in zip(
+                    (b.s_rank, b.tile_start, b.tile_count), want))):
+            raise AssertionError(f"sharded sort: band {i} is not the "
+                                 "single-device binning's")
+    if sum(b.n_live for b in bins) != single.n_live:
+        raise AssertionError("sharded sort: the bands do not add up")
+    heavy = max(range(n), key=lambda i: bins[i].n_live)
+    b = bins[heavy]
+    with torch.no_grad():
+        stream = B.pack_instances(rc.instance_attrs(projs[heavy]), b)
+    fargs = (stream, b.tile_start, b.tile_count, tiles_x, ts)
+    kw = dict(tile0=heavy * ntb)
+    name = f"sharded band{heavy}"
+    acc = rc.raster_fwd(*fargs, **kw)
+    res["fwd_err"] = gate_acc(acc, rc.raster_fwd_plain(*fargs, **kw), name)
+    bargs = (*fargs, acc, seeded_gout(acc, 1818))
+    res["bwd_err"] = gate_rows(rc.raster_bwd(*bargs, **kw),
+                               rc.raster_bwd_plain(*bargs, **kw), name)
+    res["sort"] = {"band_n_live": [b.n_live for b in bins],
+                   "whole_n_live": single.n_live, "heaviest_band": heavy,
+                   "ms": (cuda_ms(lambda: rc.raster_fwd(
+                       *fargs, **kw, ranges_checked=True)),
+                       cuda_ms(lambda: rc.raster_bwd(
+                           *bargs, **kw, ranges_checked=True)))}
+    sorted_step = sharded.make_sharded_train_step(config, settings, mesh)
+
+    def whole_image_step(st, cams):
+        # the band route's reference: no binning handed to
+        # `rasterize_tiles`, so every rank bins and packs the whole image
+        with mock.patch.object(sharded, "bin_gaussians_sharded",
+                               lambda ps, *a: [None] * len(ps)):
+            return sorted_step(st, cams)
+
+    band_steps = {"sharded_sort": sorted_step, "whole_image": whole_image_step}
+    losses = {}
+    for key, band_step in band_steps.items():
+        band_step(state, [cam])      # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        _, m = band_step(state, [cam])
+        torch.cuda.synchronize()
+        losses[key] = float(m["total_loss"])
+        res["sort"][f"launches_{key}"] = counts()
+        if counts() != ((n, n, 0, 0) if on_card else (0,) * 4):
+            raise AssertionError(f"the band-route step ({key}) launched "
+                                 f"{counts()}")
+        # the fullest rank's stream: its band's, or the whole image's
+        fullest = {"sharded_sort": max(b.n_live for b in bins),
+                   "whole_image": single.n_live}[key]
+        if int(m["render_instances"]) != fullest:
+            raise AssertionError(f"the band-route step ({key}) streamed "
+                                 f"{m['render_instances']} instances on its "
+                                 f"fullest rank, not {fullest}")
+    res["sort"]["launches"] = res["sort"]["launches_sharded_sort"]
+    res["sort"]["loss_rel"] = abs(losses["whole_image"]
+                                  / losses["sharded_sort"] - 1.0)
+    if res["sort"]["loss_rel"] > 1e-6:
+        raise AssertionError(f"the band-route step's loss through the "
+                             f"sharded sort: {losses}")
+    # Host ms in turns (sorted, whole, whole, sorted, ...), then device
+    # busy ms and launches under the profiler.
+    host = {key: [] for key in band_steps}
+    for rep in range(6):
+        for key in (list(band_steps) if rep % 2 == 0
+                    else list(band_steps)[::-1]):
+            t0 = time.perf_counter()
+            band_steps[key](state, [cam])
+            torch.cuda.synchronize()
+            host[key].append((time.perf_counter() - t0) * 1e3)
+    for key, band_step in band_steps.items():
+        res["sort"][f"step_{key}"] = {
+            "step_ms": host[key],
+            "step_ms_median": float(np.median(host[key])),
+            **traced(lambda: band_step(state, [cam]), 1)}
+
+    def whole_image_binning():
+        for p in projs:
+            bw = B.bin_gaussians(p, size, size, ts)
+            B.pack_instances(rc.instance_attrs(p), bw)
+
+    def sharded_binning():
+        for p, bs in zip(projs, sharded.bin_gaussians_sharded(
+                projs, band_h, size, ts, devices)):
+            B.pack_instances(rc.instance_attrs(p), bs)
+
+    with torch.no_grad():
+        for key, fn in (("binning_sharded", sharded_binning),
+                        ("binning_whole_image", whole_image_binning)):
+            fn()
+            res["sort"][key] = traced(fn, 1)
     return res
 
 
@@ -2323,7 +2624,88 @@ def main() -> int:
         e17 = entry_scripts_phase(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"chip_smoke: phases 1-17 passed in "
+
+    # ---- 18. ring v2 / v3 and the band route's sharded sort -------------
+    # (a), (b) on phase 11's trained ring state (5 ranks, 800^2, tile 32,
+    # pool 131,075) from the bench view; (c) main_torch.py over (1, 2) at
+    # tile 16 on phase 13's COLMAP scene, through ring v3 and ring v2.
+    t18 = time.perf_counter()
+    p18 = ring_routes_phase(rc, dev, r_state, r_config, settings, train_cam)
+    for route, row in p18["routes"].items():
+        vs = (f" (against v1: loss rel {row['loss_rel']:.2e}, xyz "
+              f"{row['xyz_max']:.2e})" if route != "v1" else "")
+        print(f"[18a ring {route}] {VIEW_SIZE}^2 tile 32, pool "
+              f"{RING_CAPACITY}, {n_rk} ranks on the card"
+              f"{', state split over (1, 5)' if route == 'v3' else ''}: "
+              f"launches (fwd, bwd, fwd t0, bwd t0) {row['launches']}, loss "
+              f"{row['loss']:.6f}{vs}; step ms median "
+              f"{row['step_ms_median']:.2f} "
+              f"({' '.join(f'{t:.2f}' for t in row['step_ms'])}); device "
+              f"busy {row['device_busy_ms']:.3f} ms in "
+              f"{row['kernel_launches']:.0f} kernel launches; peak "
+              f"{row['peak_bytes'] / 2**20:.1f} MiB allocated "
+              f"({row['peak_bytes_above_start'] / 2**20:.1f} above the "
+              f"step's start) | {smi}\n  stages a step: "
+              f"{json.dumps(row['stages'])}", flush=True)
+    print(f"[18a v3's {n_rk * n_rk} launches] {p18['v3_instances']} "
+          f"instances: B3 max {p18['fwd_t0_err']:.2e}, B4 worst row "
+          f"{p18['bwd_t0_err']:.2e}; renders of v2 and v3 bitwise v1's",
+          flush=True)
+    srt = p18["sort"]
+    print(f"[18b sharded candidate sort] {VIEW_SIZE}^2 tile 32, {n_rk} "
+          f"bands, pool {RING_CAPACITY}: band n_live {srt['band_n_live']} "
+          f"(whole image {srt['whole_n_live']}), every band exactly the "
+          f"single-device binning's; heaviest band {srt['heaviest_band']}: "
+          f"B1 max {p18['fwd_err']:.2e}, B2 worst {p18['bwd_err']:.2e}, "
+          f"B1 {srt['ms'][0]:.3f} ms, B2 {srt['ms'][1]:.3f} ms\n"
+          + "".join(
+              f"  band-route step, {key.replace('_', ' ')}: launches "
+              f"{srt['launches_' + key]}, host ms median "
+              f"{srt['step_' + key]['step_ms_median']:.2f} ("
+              f"{' '.join(f'{t:.2f}' for t in srt['step_' + key]['step_ms'])}"
+              f"), device busy {srt['step_' + key]['device_busy_ms']:.3f} ms "
+              f"in {srt['step_' + key]['kernel_launches']:.0f} kernel "
+              f"launches\n" for key in ("sharded_sort", "whole_image"))
+          + f"  loss rel between the two {srt['loss_rel']:.2e}; binning + "
+          f"pack of the {n_rk} ranks: sharded sort "
+          f"{srt['binning_sharded']['device_busy_ms']:.3f} ms in "
+          f"{srt['binning_sharded']['kernel_launches']:.0f} launches, whole "
+          f"image on every rank "
+          f"{srt['binning_whole_image']['device_busy_ms']:.3f} ms in "
+          f"{srt['binning_whole_image']['kernel_launches']:.0f} | {smi}\n"
+          + "".join(f"  band-route step stages, {key.replace('_', ' ')}: "
+                    f"{json.dumps(srt['step_' + key]['stages'])}\n"
+                    for key in ("sharded_sort", "whole_image")),
+          flush=True)
+    t18c = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        local_runs = [mesh_entry_phase(
+            dev, g, N_GAUSSIANS, VIEW_SIZE, tmp, True, overrides=o,
+            gate_kernels=False) for o in (
+                {"ring_local": True},
+                {"ring_reshard": True, "shard_gauss_state": False})]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    v1_first = mesh_runs[1]["first_loss"]
+    for r in local_runs:
+        rel = abs(r["first_loss"] / v1_first - 1.0)
+        print(f"[18c main_torch.py over (1, 2), ring_exchange, "
+              f"{json.dumps(r['overrides'])}] tile {MESH_TILE_SIZE}, "
+              f"{r['steps']} steps: first loss {r['first_loss']:.6f} (phase "
+              f"16d's v1 run {v1_first:.6f}, rel {rel:.2e}), launches "
+              f"{r['launches']}, final PSNR {r['psnr']:.2f}, validate vs one "
+              f"device {r['validate_err']:.2e}, trainer step ms median "
+              f"{r['step_ms_median']:.2f} min {r['step_ms_min']:.2f} max "
+              f"{r['step_ms_max']:.2f} | {smi}", flush=True)
+        if rel > 1e-5 or not np.isfinite(r["psnr"]):
+            raise AssertionError(f"18c: {r['overrides']} first loss "
+                                 f"{r['first_loss']} against v1's {v1_first}")
+    print(f"[18] phase 18 took {time.perf_counter() - t18:.1f} s: (a) and "
+          f"(b) {t18c - t18:.1f} ({traced.seconds:.1f} of it under the "
+          f"profiler and reading its traces), (c) "
+          f"{time.perf_counter() - t18c:.1f}", flush=True)
+    print(f"chip_smoke: phases 1-18 passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- result -------------------------------------------------------
@@ -2337,8 +2719,10 @@ def main() -> int:
          "launches_parity_tiles": pp["routes"]["tiles"]["launches_fwd"],
          "launches_mesh_trainer": mesh_runs[0]["launches"][0],
          "launches_1m": e17["launches_1m"][0],
+         "launches_band_sharded_sort": p18["sort"]["launches"][0],
          "max_abs_err": max(fwd_err, fwd_patch_err, e17["fwd_err"],
-                            mesh_runs[0]["kernels"]["fwd_err"]),
+                            mesh_runs[0]["kernels"]["fwd_err"],
+                            p18["fwd_err"]),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "raster_bwd", "route": "cuda",
@@ -2350,8 +2734,10 @@ def main() -> int:
          "launches_parity_tiles": pp["routes"]["tiles"]["launches_bwd"],
          "launches_mesh_trainer": mesh_runs[0]["launches"][1],
          "launches_1m": e17["launches_1m"][1],
+         "launches_band_sharded_sort": p18["sort"]["launches"][1],
          "max_abs_err": max(bwd_err, patch_err,
-                            mesh_runs[0]["kernels"]["bwd_err"]),
+                            mesh_runs[0]["kernels"]["bwd_err"],
+                            p18["bwd_err"]),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},
         # The two builds with t0: times, plain times and bounds are sums
@@ -2364,8 +2750,11 @@ def main() -> int:
          "launches_per_step": per_step,
          "launches_render": ring_render_launches[2],
          "launches_mesh_trainer": mesh_runs[1]["launches"][2],
+         **{f"launches_ring_{r}": p18["routes"][r]["launches"][2]
+            for r in ("v2", "v3")},
          "max_abs_err": max(t0_err, t3["err"],
-                            mesh_runs[1]["kernels"]["fwd_t0_err"]),
+                            mesh_runs[1]["kernels"]["fwd_t0_err"],
+                            p18["fwd_t0_err"]),
          "ms": t3["ms"],
          "ms_slowest_launch": t3["worst"], "plain_ms": t3["plain"],
          "bound_ms": t3["bound"], "bound_by": t3["by"], "library_ms": None},
@@ -2375,8 +2764,11 @@ def main() -> int:
          "launches": ring_train_launches[3],
          "launches_per_step": per_step,
          "launches_mesh_trainer": mesh_runs[1]["launches"][3],
+         **{f"launches_ring_{r}": p18["routes"][r]["launches"][3]
+            for r in ("v2", "v3")},
          "max_abs_err": max(dt0_err, patch_t0_err, t4["err"],
-                            mesh_runs[1]["kernels"]["bwd_t0_err"]),
+                            mesh_runs[1]["kernels"]["bwd_t0_err"],
+                            p18["bwd_t0_err"]),
          "ms": t4["ms"],
          "ms_slowest_launch": t4["worst"], "plain_ms": t4["plain"],
          "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None}],
@@ -2385,6 +2777,20 @@ def main() -> int:
                  "grad_rel_l2": ring_grad_err},
         "mesh": {"step_vs_replicated": m16,
                  "trainer_step_ms": [r["step_ms_median"] for r in mesh_runs]},
+        "ring_routes": {route: {k: row[k] for k in (
+            "step_ms_median", "device_busy_ms", "kernel_launches",
+            "peak_bytes")} for route, row in p18["routes"].items()},
+        "sharded_sort": {
+            "step_host_ms": {k: p18["sort"][f"step_{k}"]["step_ms_median"]
+                             for k in ("sharded_sort", "whole_image")},
+            "step_device_busy_ms": {
+                k: p18["sort"][f"step_{k}"]["device_busy_ms"]
+                for k in ("sharded_sort", "whole_image")},
+            "binning_device_ms": {
+                k: p18["sort"][f"binning_{k}"]["device_busy_ms"]
+                for k in ("sharded", "whole_image")}},
+        "ring_local_reshard_trainer_step_ms": [
+            r["step_ms_median"] for r in local_runs],
         "one_million": {k: e17["one"][k] for k in (
             "steady_ms_per_it", "window_ms_per_it", "peak_gib", "n_alive",
             "n_live", "psnr")},

@@ -6,15 +6,12 @@ defaults, so a configuration reads the same in both packages, and
 `configs/`, or flat) without PyYAML (`utils/yaml_subset.py`) and also
 accepts JSON.
 
-Two groups of the JAX package's keys have no field here:
-  * `SHAPE_ONLY_KEYS` size the TPU's static shapes or pick its dispatch.
-    The port's instance stream holds exactly the live instances and it
-    takes one step per call, so they mean nothing here: a file that sets
-    them is read, and the keys are reported once on stderr.
-  * `ROUTE_KEYS` choose ring v2 / v3 (the rank reshard of the projected
-    rows, the ring over the local gid block), which the port does not have
-    yet (ROADMAP section A, item 4).  A file that sets one to anything but
-    its default raises ValueError.
+The JAX package's keys in `SHAPE_ONLY_KEYS` have no field here: they
+size the TPU's static shapes or pick its dispatch.  The port's instance
+stream holds exactly the live instances, its collectives move
+variable-length slices (so the ring v3 reshard needs no bucket capacity)
+and it takes one step per call, so they mean nothing here: a file that
+sets them is read, and the keys are reported once on stderr.
 """
 
 from __future__ import annotations
@@ -110,6 +107,8 @@ class TrainingConfig:
     mesh_data: int = 1               # cameras trained side by side
     mesh_tile: int = 1               # image bands of whole tile rows
     ring_exchange: bool = False      # ring exchange of depth-rank-range segments (parallel/ring.py)
+    ring_reshard: bool = False       # ring v2: reshard the projected rows by depth range first
+    ring_local: bool = False         # ring v3 (gauss-sharded step): the ring takes each rank's block
     # Split the pool and its Adam state over the mesh's ranks (per-rank
     # state memory ~C/n; parallel/sharded.shard_train_state).
     shard_gauss_state: bool = False
@@ -123,16 +122,13 @@ class TrainingConfig:
 
 
 # The JAX package's keys that size the TPU's static shapes or pick its
-# dispatch (stream and large-pool capacities, Pallas chunking, the K-step
-# loop, the dtype knob).  Reported when a file sets them, then unused.
+# dispatch (stream, large-pool, ring-segment and reshard-bucket capacities,
+# Pallas chunking, the K-step loop, the dtype knob).  Reported when a file
+# sets them, then unused.
 SHAPE_ONLY_KEYS = ("max_instances", "gaussian_chunk", "max_dup_per_axis",
-                   "large_capacity", "ring_capacity", "steps_per_call",
-                   "loop_stage_budget_mb", "auto_max_instances", "dtype")
-# The JAX package's keys of ring v2 / v3, which the port has not yet
-# (ROADMAP section A, item 4), with the JAX defaults: any other value
-# raises.
-ROUTE_KEYS = {"ring_reshard": False, "ring_local": False,
-              "ring_reshard_capacity": 0}
+                   "large_capacity", "ring_capacity", "ring_reshard_capacity",
+                   "steps_per_call", "loop_stage_budget_mb",
+                   "auto_max_instances", "dtype")
 
 # Mapping from nested YAML groups to flat field names (the JAX package's).
 _NESTED_MAP = {
@@ -207,9 +203,9 @@ _POSITION_LR_MAP = {
 def _flatten_yaml(data: dict) -> dict:
     """Accept either a flat dict of field names or the nested layout.
     Keys of the JAX package's fields that the port does not carry
-    (SHAPE_ONLY_KEYS, ROUTE_KEYS) are kept; unknown keys are dropped."""
+    (SHAPE_ONLY_KEYS) are kept; unknown keys are dropped."""
     names = ({f.name for f in dataclasses.fields(TrainingConfig)}
-             | set(SHAPE_ONLY_KEYS) | set(ROUTE_KEYS))
+             | set(SHAPE_ONLY_KEYS))
     flat: dict = {}
     for key, value in data.items():
         if key in names and not isinstance(value, dict):
@@ -229,17 +225,8 @@ def _flatten_yaml(data: dict) -> dict:
 
 def config_from_dict(data: dict, source: str = "config") -> TrainingConfig:
     """TrainingConfig from a nested or flat dict: reports the shape-only
-    keys it sets (once, on stderr) and raises on a route key that is not
-    at its default."""
+    keys it sets (once, on stderr)."""
     flat = _flatten_yaml(data)
-    routes = {k: flat.pop(k) for k in list(flat) if k in ROUTE_KEYS}
-    for k, v in routes.items():
-        if v != ROUTE_KEYS[k]:
-            raise ValueError(
-                f"{source}: {k}={v!r} selects ring v2 / v3 (the rank "
-                "reshard, the ring over the local gid block), which the "
-                "PyTorch port does not have yet (ROADMAP section A, item 4); "
-                f"leave it at {ROUTE_KEYS[k]!r}")
     shape_only = {k: flat.pop(k) for k in list(flat) if k in SHAPE_ONLY_KEYS}
     if shape_only:
         print(f"[config] {source}: not used by the PyTorch port (they size "

@@ -1,6 +1,7 @@
 """Tile binning: (tile, depth-rank) instances, sort, per-tile ranges
-(counterpart of mini3dgs_tpu/ops/binning.py: the single-device path and
-the ring route's origin binning, ring v1).
+(counterpart of mini3dgs_tpu/ops/binning.py: the single-device path, one
+rank's share of the band route's sharded candidate sort, and the ring
+route's origin binning in ring v1 and on rank-resharded rows, v2 / v3).
 
 Each visible Gaussian is duplicated into one instance per image tile its
 footprint overlaps; instances are sorted by the composite key
@@ -9,11 +10,17 @@ front-to-back slice of the stream.  Depth ranks come from one stable global
 depth sort, so ties keep the reference's order.
 
 The JAX package sizes everything statically for the TPU (stream capacity,
-a two-level candidate grid, an int32 key with a two-operand fallback).  Here
-the stream holds exactly `n_live` instances: each Gaussian's candidate tiles
-are enumerated from its span, filtered by the exact ellipse-vs-tile test,
-and compacted, so nothing is ever dropped (`n_dropped*` and `n_large` are
-kept in the output for the render dict and are always 0).
+a two-level candidate grid, an int32 key with a two-operand fallback, the
+reshard's and the route's per-destination capacities).  Here the stream
+holds exactly `n_live` instances: each Gaussian's candidate tiles are
+enumerated from its span, filtered by the exact ellipse-vs-tile test, and
+compacted, and the collectives move variable-length slices, so nothing is
+ever dropped (`n_dropped*`, `n_large` and the reshard's drops are kept in
+the outputs for the render dict and are always 0).
+
+The functions here work on one rank's tensors; the collectives that join
+them (the distributed depth ranks, the rank reshard, the sharded sort's
+exchange) are in parallel/ring.py and parallel/sharded.py.
 """
 
 from __future__ import annotations
@@ -164,26 +171,41 @@ def _layout(s_tile: torch.Tensor, num_tiles: int):
     return start.int(), count.int()
 
 
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation of 0 .. len - 1."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return inv
+
+
+def _emit_keys(proj: Projected, H: int, W: int, tile_size: int,
+               rank: torch.Tensor, keep=None):
+    """The sorted (tile << 32 | rank) keys of the instances of the rows of
+    `proj`, row g carrying depth rank `rank[g]`, and the instances each row
+    emits.  `keep` [rows] bool restricts the emitting rows."""
+    tiles_x = -(-W // tile_size)
+    tx0, ty0, sx, sy = _viewport_spans(proj, H, W, tile_size)
+    if keep is not None:
+        zero = torch.zeros_like(sx)
+        sx, sy = torch.where(keep, sx, zero), torch.where(keep, sy, zero)
+    gid, tx, ty, counts = _grid_counts(proj, tx0, ty0, sx, sy, tile_size)
+    # One int64 sort key per instance: tile in the high word, depth rank in
+    # the low word, so the sorted stream is tile-major and front-to-back.
+    s_key = torch.sort((ty * tiles_x + tx) << 32 | rank[gid]).values
+    return s_key, counts
+
+
 def _sorted_keys(proj: Projected, H: int, W: int, tile_size: int,
                  rank_range=None):
     """The sorted (tile << 32 | depth rank) keys of the instances, with
     (order, inv_order, counts_gid).  `rank_range` = (lo, hi) keeps only the
     Gaussians whose depth rank lies in [lo, hi)."""
-    C = proj.means2d.shape[0]
-    tiles_x = -(-W // tile_size)
-    tx0, ty0, sx, sy = _viewport_spans(proj, H, W, tile_size)
     order = _depth_order(proj)
-    inv_order = torch.empty_like(order)
-    inv_order[order] = torch.arange(C, device=order.device)
+    inv_order = inverse_permutation(order)
+    keep = None
     if rank_range is not None:
-        in_range = (inv_order >= rank_range[0]) & (inv_order < rank_range[1])
-        zero = torch.zeros_like(sx)
-        sx, sy = torch.where(in_range, sx, zero), torch.where(in_range, sy,
-                                                              zero)
-    gid, tx, ty, counts_gid = _grid_counts(proj, tx0, ty0, sx, sy, tile_size)
-    # One int64 sort key per instance: tile in the high word, depth rank in
-    # the low word, so the sorted stream is tile-major and front-to-back.
-    s_key = torch.sort((ty * tiles_x + tx) << 32 | inv_order[gid]).values
+        keep = (inv_order >= rank_range[0]) & (inv_order < rank_range[1])
+    s_key, counts_gid = _emit_keys(proj, H, W, tile_size, inv_order, keep)
     return s_key, order, inv_order, counts_gid
 
 
@@ -197,6 +219,39 @@ def bin_gaussians(proj: Projected, H: int, W: int,
     return Binning(s_rank=s_rank, order=order, inv_order=inv_order,
                    counts_gid=counts_gid, tile_start=tile_start,
                    tile_count=tile_count, n_live=int(s_key.shape[0]))
+
+
+def slice_rows(proj: Projected, rows: slice) -> Projected:
+    """The rows `rows` of every field of `proj`."""
+    return Projected(*(f[rows] for f in proj))
+
+
+def shard_keys(proj: Projected, H: int, W: int, tile_size: int,
+               rows: slice):
+    """One rank's half of the band route's sharded candidate sort
+    (parallel/sharded.py `bin_gaussians_sharded`): the depth order of the
+    full projected set `proj`, its inverse, and the sorted (tile << 32 |
+    depth rank) keys of the instances of the rows `rows` alone, over the
+    whole [H, W] image."""
+    order = _depth_order(proj)
+    rank = inverse_permutation(order)
+    s_key, _ = _emit_keys(slice_rows(proj, rows), H, W, tile_size, rank[rows])
+    return s_key, order, rank
+
+
+def band_binning(s_key: torch.Tensor, order: torch.Tensor,
+                 inv_order: torch.Tensor, tile0: int,
+                 num_tiles: int) -> Binning:
+    """The `Binning` of the sorted keys `s_key` of tiles [tile0, tile0 +
+    num_tiles) alone, with tile ranges local to them; `counts_gid` counts
+    each Gaussian's instances in these tiles."""
+    s_rank = s_key & 0xFFFFFFFF
+    tile_start, tile_count = _layout((s_key >> 32) - tile0, num_tiles)
+    return Binning(s_rank=s_rank, order=order, inv_order=inv_order,
+                   counts_gid=torch.bincount(order[s_rank],
+                                             minlength=order.shape[0]),
+                   tile_start=tile_start, tile_count=tile_count,
+                   n_live=int(s_key.shape[0]))
 
 
 class RingBinning(NamedTuple):
@@ -221,6 +276,28 @@ class RingBinning(NamedTuple):
         return self.order[self.s_rank]
 
 
+def _ring_checks(C: int, tiles_y: int, n_shards: int) -> None:
+    if C % n_shards:
+        raise ValueError(f"capacity {C} must divide over the {n_shards} ring "
+                         "devices")
+    if tiles_y % n_shards:
+        raise ValueError(f"{tiles_y} tile rows must divide into {n_shards} "
+                         "bands")
+
+
+def _ring_segments(s_key: torch.Tensor, tiles_x: int, tiles_y: int,
+                   n_shards: int):
+    """Band segments of an origin's sorted whole-image keys: (tile_start,
+    tile_count) [n_bands, T_band] local to each segment, the segments'
+    bounds and the stream's length."""
+    ntb = tiles_y // n_shards * tiles_x
+    start, count = _layout(s_key >> 32, tiles_x * tiles_y)
+    start, count = start.reshape(n_shards, ntb), count.reshape(n_shards, ntb)
+    n_live = int(s_key.shape[0])
+    seg_start = (*start[:, 0].tolist(), n_live)
+    return start - start[:, :1], count, seg_start, n_live
+
+
 def bin_gaussians_ring_origin(proj: Projected, full_h: int, full_w: int,
                               tile_size: int, range_index: int,
                               n_shards: int) -> RingBinning:
@@ -239,24 +316,46 @@ def bin_gaussians_ring_origin(proj: Projected, full_h: int, full_w: int,
     C = proj.means2d.shape[0]
     tiles_x = -(-full_w // tile_size)
     tiles_y = -(-full_h // tile_size)
-    if C % n_shards:
-        raise ValueError(f"capacity {C} must divide over the {n_shards} ring "
-                         "devices")
-    if tiles_y % n_shards:
-        raise ValueError(f"{tiles_y} tile rows must divide into {n_shards} "
-                         "bands")
+    _ring_checks(C, tiles_y, n_shards)
     Cs = C // n_shards
-    ntb = tiles_y // n_shards * tiles_x
     s_key, order, _, counts_gid = _sorted_keys(
         proj, full_h, full_w, tile_size,
         rank_range=(range_index * Cs, (range_index + 1) * Cs))
-    start, count = _layout(s_key >> 32, tiles_x * tiles_y)
-    start, count = start.reshape(n_shards, ntb), count.reshape(n_shards, ntb)
-    n_live = int(s_key.shape[0])
-    seg_start = (*start[:, 0].tolist(), n_live)
+    start, count, seg_start, n_live = _ring_segments(s_key, tiles_x, tiles_y,
+                                                     n_shards)
     return RingBinning(s_rank=s_key & 0xFFFFFFFF, order=order,
-                       counts_gid=counts_gid,
-                       tile_start=start - start[:, :1], tile_count=count,
+                       counts_gid=counts_gid, tile_start=start,
+                       tile_count=count, seg_start=seg_start, n_live=n_live)
+
+
+def bin_gaussians_ring_origin_resharded(
+        proj_local: Projected, rank_base: int, C: int, full_h: int,
+        full_w: int, tile_size: int, n_shards: int) -> RingBinning:
+    """Origin binning on rank-local rows (ring v2 / v3; counterpart of the
+    JAX `bin_gaussians_ring_origin_resharded`): `proj_local` holds the
+    C/n rows of global depth ranks [rank_base, rank_base + C/n) in rank
+    order (from parallel/ring.py `rank_reshard_rows`; a rank no row
+    carries is a zero row, invisible).  The candidate keys are
+    tile << 32 | GLOBAL rank, so the
+    segments, their tile ranges and the stream are bitwise those of
+    `bin_gaussians_ring_origin` for the same range, while every
+    per-Gaussian stage runs on C/n rows.  `s_rank`, `order` and
+    `counts_gid` are in local row space (rank - rank_base), the space of
+    the caller's [R, C/n] `instance_attrs`."""
+    Cs = proj_local.means2d.shape[0]
+    tiles_x = -(-full_w // tile_size)
+    tiles_y = -(-full_h // tile_size)
+    _ring_checks(C, tiles_y, n_shards)
+    if Cs * n_shards != C:
+        raise ValueError(f"{Cs} local rows are not 1/{n_shards} of the "
+                         f"capacity {C}")
+    local = torch.arange(Cs, device=proj_local.means2d.device)
+    s_key, counts = _emit_keys(proj_local, full_h, full_w, tile_size,
+                               rank_base + local)
+    start, count, seg_start, n_live = _ring_segments(s_key, tiles_x, tiles_y,
+                                                     n_shards)
+    return RingBinning(s_rank=(s_key & 0xFFFFFFFF) - rank_base, order=local,
+                       counts_gid=counts, tile_start=start, tile_count=count,
                        seg_start=seg_start, n_live=n_live)
 
 

@@ -657,27 +657,41 @@ def compose_image(acc: torch.Tensor, H: int, W: int, tile_size: int,
 
 def rasterize_tiles(proj: Projected, H: int, W: int, bg: torch.Tensor, *,
                     tile_size: int = 16, fwd: Callable = raster_op,
-                    row0: int = 0, full_height: Optional[int] = None) -> dict:
+                    row0: int = 0, full_height: Optional[int] = None,
+                    binning: Optional[B.Binning] = None) -> dict:
     """Tile raster path: binning -> pack -> `fwd` (the kernel pair by
     default; `raster_fwd_plain` to compare against it) -> epilogue.
     Differentiable with respect to the fields of `proj`.
 
     With `full_height` the call renders the band of rows [row0, row0 + H)
-    of a `full_height` x W image: the whole image is binned and packed, and
-    the kernels run on the band's tile rows only (`tile0`).  The counters
-    are then those of the whole image's stream."""
+    of a `full_height` x W image, and the kernels run on the band's tile
+    rows only (`tile0`).  The band route passes the `binning` of the
+    band's tiles alone (tile ranges local to the band: parallel/sharded.py
+    `bin_gaussians_sharded`); it is packed as it is, and the counters are
+    the band's, as the JAX package's are.  Without `binning` the whole
+    image is binned and packed, and the counters are those of the whole
+    image's stream: the band route's reference."""
     full_h = H if full_height is None else full_height
     tiles_x = -(-W // tile_size)
     if row0 % tile_size or row0 + H > full_h \
             or (H % tile_size and row0 + H != full_h):
         raise ValueError(f"rows [{row0}, {row0 + H}) of {full_h} are not a "
                          f"band of whole {tile_size}-pixel tile rows")
-    b, stream = tile_stream(proj, full_h, W, tile_size)
     tile0 = row0 // tile_size * tiles_x
     tiles = slice(tile0, tile0 + -(-H // tile_size) * tiles_x)
+    if binning is None:
+        b, stream = tile_stream(proj, full_h, W, tile_size)
+        start, count = b.tile_start[tiles], b.tile_count[tiles]
+    else:
+        b = binning
+        if b.tile_start.shape[0] != tiles.stop - tiles.start:
+            raise ValueError(f"the binning holds {b.tile_start.shape[0]} "
+                             f"tiles, the band {tiles.stop - tiles.start}")
+        with record_function("3dgs:pack"):
+            stream = B.pack_instances(instance_attrs(proj), b)
+        start, count = b.tile_start, b.tile_count
     with record_function("3dgs:raster_fwd"):
-        acc = fwd(stream, b.tile_start[tiles], b.tile_count[tiles], tiles_x,
-                  tile_size, tile0=tile0)
+        acc = fwd(stream, start, count, tiles_x, tile_size, tile0=tile0)
     with record_function("3dgs:epilogue"):
         image, alpha, depth = compose_image(acc, H, W, tile_size, bg)
     return {"image": image, "alpha": alpha, "depth": depth,

@@ -50,6 +50,15 @@ class RenderSettings:
     # from range to range.  Only the sharded entry points of
     # parallel/sharded.py read it; `render` renders on one device.
     ring: bool = False
+    # Ring v2: send each projected row to the owner of its depth-rank range
+    # first, so the origin's emission, sort and pack run on C/n rows; the
+    # same segments as v1, bit for bit.
+    ring_reshard: bool = False
+    # Ring v3, in the gauss-sharded train step only (where it takes
+    # precedence over ring_reshard): the ring takes each tile rank's own
+    # block of projected rows, the depth ranks come from a ring-rotation
+    # counting sort, and no rank holds a tensor of C rows.
+    ring_local: bool = False
 
     def replace(self, **changes) -> "RenderSettings":
         return dataclasses.replace(self, **changes)

@@ -19,12 +19,17 @@ Two layouts of the train state:
     global block t * data + d (the JAX package's tile-major `GAUSS_AXES`),
     so a gather over `data` at a fixed t is one contiguous block of slots.
 
-Two band routes: the ring exchange of depth-rank-range segments
-(parallel/ring.py, `settings.ring`, ring v1), which runs the raster kernels'
-`t0` builds, and the band-restricted `rasterize_tiles` (every rank bins the
-whole image and launches the kernels on its band's tile rows), which the
-ring is compared against.  The sharded candidate sort
-(`bin_gaussians_sharded`) and ring v2/v3 are not ported yet.
+Two band routes:
+  * the ring exchange of depth-rank-range segments (parallel/ring.py,
+    `settings.ring`), which runs the raster kernels' `t0` builds: ring v1,
+    v2 with `settings.ring_reshard`, and in the gauss-sharded step v3 with
+    `settings.ring_local` (each tile rank hands the ring its own gid block,
+    and no rank holds the whole projected set);
+  * the band route: rank i rasterizes its band's tile rows with the kernels
+    built without `t0`.  It bins through the sharded candidate sort
+    (`bin_gaussians_sharded`: rank i sorts the keys of gid shard i, one
+    all_to_all sends each band its keys) and packs its band's instances
+    only.
 
 The ranks of an axis are a Python loop (parallel/mesh.py) and autograd
 differentiates through the collectives as they stand: every rank works on
@@ -49,6 +54,7 @@ from ..config import TrainingConfig
 from ..core.camera import Camera
 from ..core.gaussians import Gaussians
 from ..core.loss import gaussian_loss, gaussian_loss_banded
+from ..ops import binning as B
 from ..ops.projection import Projected, project_gaussians
 from ..ops.raster_cuda import rasterize_tiles
 from ..ops.renderer import RenderSettings, render
@@ -105,6 +111,47 @@ def _project(gs: Sequence[Gaussians], cameras: Sequence[Camera],
     return _gather_projected(shards, devices)
 
 
+def bin_gaussians_sharded(projs: Sequence[Projected], band_h: int, W: int,
+                          tile_size: int, devices: Sequence
+                          ) -> List[B.Binning]:
+    """The band route's sharded candidate sort (counterpart of the JAX
+    `bin_gaussians_sharded`): rank i owns image band i (rows [i * band_h,
+    (i + 1) * band_h) of the band_h * n x W image) and gid shard i, the
+    slots [i * C // n, (i + 1) * C // n), so C need not divide over the
+    ranks.  `projs[i]` is the full projected set as rank i holds it.
+
+    Rank i emits and sorts the (tile << 32 | depth rank) keys of its gid
+    shard only, over the whole image (`binning.shard_keys`); bands are
+    contiguous key ranges, so it cuts its sorted keys into n segments,
+    sends segment b to rank b (one `all_to_all` of variable-length slices)
+    and merges the n sorted segments it receives with one sort.  Returns
+    one `Binning` per rank: exactly the single-device binning of its band's
+    tiles (the same `s_rank`, tile ranges local to the band), with
+    `counts_gid` the instances each Gaussian emits in the band.  The depth
+    order is one stable sort over the full set on every rank, as in the
+    JAX package."""
+    n = len(devices)
+    C = projs[0].means2d.shape[0]
+    if band_h % tile_size:
+        raise ValueError(f"a band of {band_h} rows is not whole "
+                         f"{tile_size}-pixel tile rows")
+    ntb = band_h // tile_size * -(-W // tile_size)
+    send, orders = [], []
+    for i, proj in enumerate(projs):
+        s_key, order, rank = B.shard_keys(
+            proj, band_h * n, W, tile_size, slice(i * C // n,
+                                                  (i + 1) * C // n))
+        cuts = torch.arange(n + 1, device=s_key.device) * ntb << 32
+        bounds = torch.searchsorted(s_key, cuts).tolist()
+        send.append([s_key[bounds[b]:bounds[b + 1]] for b in range(n)])
+        orders.append((order, rank))
+    recv = M.all_to_all(send, devices)
+    return [B.band_binning(
+        torch.sort(torch.cat(keys)).values if n > 1 else keys[0],
+        order, rank, i * ntb, ntb)
+        for i, (keys, (order, rank)) in enumerate(zip(recv, orders))]
+
+
 def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
                   band_h: int, devices: Sequence) -> List[dict]:
     """Render band i (rows [i*band_h, (i+1)*band_h) of the image) on rank i
@@ -124,12 +171,17 @@ def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
                 f"over the {n} ranks of the tile axis, and the ring route "
                 "takes no other partition")
         return ring_rasterize_bands(projs, band_h, W, settings.bg_color,
-                                    devices, tile_size=settings.tile_size)
+                                    devices, tile_size=settings.tile_size,
+                                    reshard=settings.ring_reshard)
+    with record_function("3dgs:binning"):
+        bins = bin_gaussians_sharded(projs, band_h, W, settings.tile_size,
+                                     devices)
     return [rasterize_tiles(
         proj, band_h, W,
         torch.as_tensor(settings.bg_color, dtype=torch.float32, device=dev),
-        tile_size=settings.tile_size, row0=i * band_h, full_height=H)
-        for i, (proj, dev) in enumerate(zip(projs, devices))]
+        tile_size=settings.tile_size, row0=i * band_h, full_height=H,
+        binning=b)
+        for i, (proj, dev, b) in enumerate(zip(projs, devices, bins))]
 
 
 def _assemble(outs: Sequence[dict], device, ring: bool) -> dict:
@@ -163,7 +215,12 @@ def _camera_mean(totals: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(totals).mean()
 
 
-def _step_metrics(parts_all, n_live, n_dropped, n_visible) -> dict:
+def _step_metrics(parts_all, n_live, n_dropped, n_visible,
+                  reshard_drops=None) -> dict:
+    """The step's metrics: the loss terms and the drops the mean over the
+    cameras (drops summed over each camera's bands), the fullest stream of
+    any rank; on the ring route also `reshard_drops`, rows of the rank
+    reshard (always 0 here: it moves every row)."""
     metrics = {k: torch.stack([p[k] for p in parts_all]).mean()
                for k in parts_all[0]}
     metrics.update(
@@ -171,6 +228,8 @@ def _step_metrics(parts_all, n_live, n_dropped, n_visible) -> dict:
         # the fullest stream of any rank, not the sum
         render_instances=max(n_live),
         n_visible=n_visible)
+    if reshard_drops is not None:
+        metrics["reshard_drops"] = sum(reshard_drops) / len(reshard_drops)
     return metrics
 
 
@@ -235,6 +294,7 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
         g = g0.with_params(params)
 
         totals, parts_all, n_live, n_dropped = [], [], [], []
+        reshard_drops = []
         radii = visible = None
         for d, camera in enumerate(cameras):
             devices = mesh.tile_devices(d)
@@ -256,6 +316,8 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
                               for k, v in parts.items()})
             n_live += [o["n_live"] for o in outs]
             n_dropped.append(sum(o["n_dropped"] for o in outs))
+            if st.ring:
+                reshard_drops.append(sum(o["reshard_drops"] for o in outs))
         total = _camera_mean(totals)
 
         wrt = list(params.values()) + [probe]
@@ -263,7 +325,8 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
             wrt.append(exposure)
         with record_function("3dgs:backward"):
             grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
-        metrics = _step_metrics(parts_all, n_live, n_dropped, visible.sum())
+        metrics = _step_metrics(parts_all, n_live, n_dropped, visible.sum(),
+                                reshard_drops or None)
         if grads_only:
             return mask_dead_gradients(params, grads_all, g0.alive), metrics
         new_state = apply_gradients(state, params, probe, exposure,
@@ -414,7 +477,11 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
     ranks (d', t) over `data` (one contiguous block of slots), projects
     them under camera d and adds the zero probe; the projected blocks are
     gathered over `tile` (the global slot order), the bands render, and the
-    banded loss is taken; the loss is the mean over the cameras.  Autograd
+    banded loss is taken; the loss is the mean over the cameras.  With
+    `settings.ring` and `settings.ring_local` over more than one tile rank
+    (ring v3, which takes precedence over `ring_reshard` here) the tile
+    gather is skipped: each tile rank hands the ring its projected block,
+    and per-rank activations stay O(C / tile).  Autograd
     through the gathers hands each rank the gradient of its own rows.  Each
     rank then masks its dead rows and runs Adam on its rows where they live;
     the exposure table gets the one gradient of the whole loss on every
@@ -436,6 +503,7 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
         st = settings if sh_degree is None \
             else settings.replace(sh_degree=sh_degree)
         kw = _projection_kw(st)
+        ring_local = st.ring and st.ring_local and n_tile > 1
         shards = state.shards
         Cs = shards[0].gaussians.capacity
         home = mesh.devices[0]
@@ -449,6 +517,7 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
         local = [s.gaussians.with_params(p) for s, p in zip(shards, params)]
 
         totals, parts_all, n_live, n_dropped = [], [], [], []
+        reshard_drops = []
         radii, visible = [None] * len(shards), [None] * len(shards)
         for d, camera in enumerate(cameras):
             devices = mesh.tile_devices(d)
@@ -466,8 +535,15 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
                     radii[r] = proj.radius[own].detach()
                     visible[r] = proj.visible[own]
                     slices.append(proj)
-                projs = _gather_projected(slices, devices)
-            outs = _render_bands(projs, st, band_h, devices)
+                if not ring_local:
+                    slices = _gather_projected(slices, devices)
+            if ring_local:
+                # ring v3: rank t's slices are the contiguous gid block t
+                outs = ring_rasterize_bands(
+                    slices, band_h, W, st.bg_color, devices,
+                    tile_size=st.tile_size, gid_sharded=True)
+            else:
+                outs = _render_bands(slices, st, band_h, devices)
             total, parts = _band_loss(outs, camera, devices, band_h, W,
                                       config, exposure,
                                       None if cam_idx is None else cam_idx[d])
@@ -476,6 +552,8 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
                               for k, v in parts.items()})
             n_live += [o["n_live"] for o in outs]
             n_dropped.append(sum(o["n_dropped"] for o in outs))
+            if st.ring:
+                reshard_drops.append(sum(o["reshard_drops"] for o in outs))
         total = _camera_mean(totals)
 
         n_params = len(params[0])
@@ -485,7 +563,8 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
         with record_function("3dgs:backward"):
             grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
         n_visible = sum(v.sum().to(home) for v in visible)
-        metrics = _step_metrics(parts_all, n_live, n_dropped, n_visible)
+        metrics = _step_metrics(parts_all, n_live, n_dropped, n_visible,
+                                reshard_drops or None)
         rank_grads = []
         for r, dev in enumerate(mesh.devices):
             own = list(grads_all[r * n_params:(r + 1) * n_params])

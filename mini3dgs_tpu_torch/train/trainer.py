@@ -334,7 +334,8 @@ class GaussianTrainer:
                 sh_degree=0 if cfg.color_mode == "dc_sigmoid" else cfg.sh_degree,
                 antialias=cfg.antialias,
                 raster="tiles" if cfg.use_pallas else "golden",
-                ring=cfg.ring_exchange)
+                ring=cfg.ring_exchange, ring_reshard=cfg.ring_reshard,
+                ring_local=cfg.ring_local)
         # Canonical scene extent: 1.1x the camera rig's largest distance
         # from its centre (the unit of the densify thresholds and of the
         # position-LR scaling); without cameras, the cloud's mean range.

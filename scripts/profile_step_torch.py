@@ -23,8 +23,9 @@ per step:
 With --tile-shards N (and --ring) the step is the band-sharded one of
 parallel/sharded.py over N ranks on the one card, and the pool holds
 --capacity slots (the ring needs a capacity that divides by N: 131075 for
-N = 5).  Its ranges ("3dgs:ring_origin", "3dgs:ring_exchange",
-"3dgs:ring_raster", ...) are read the same way, each with the raster
+N = 5).  Its ranges ("3dgs:ring_ranks", "3dgs:ring_reshard" of ring v2 /
+v3, "3dgs:ring_origin", "3dgs:ring_exchange", "3dgs:ring_raster", ...) are
+read the same way, each with the raster
 kernels it launches; what the device runs outside every range is autograd's
 backward of everything but the raster.
 
@@ -150,9 +151,10 @@ def analyse(events, steps: int) -> dict:
              "calls_per_step": n / steps} for name, (us, n) in top]}
 
 
-SHARDED_RANGES = ("projection", "ring_origin", "ring_exchange", "ring_raster",
-                  "binning", "pack", "raster_fwd", "epilogue", "loss",
-                  "raster_bwd", "adam", "statistics")
+SHARDED_RANGES = ("projection", "ring_ranks", "ring_reshard", "ring_origin",
+                  "ring_exchange", "ring_raster", "binning", "pack",
+                  "raster_fwd", "epilogue", "loss", "backward", "raster_bwd",
+                  "adam", "statistics")
 
 
 def analyse_sharded(events, steps: int) -> dict:

@@ -125,16 +125,24 @@ def test_json_config_is_accepted(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("ring_reshard", True), ("ring_local", True),
     ("ring_reshard_capacity", 64)])
-def test_route_keys_not_ported_raise(tmp_path, key, value):
+def test_route_keys_not_ported_raise(tmp_path, key, value, capsys):
+    """The keys of ring v2 / v3, which raised until the port had them, now
+    load: `ring_reshard` and `ring_local` into TrainingConfig as the JAX
+    package reads them, `ring_reshard_capacity` (the TPU's reshard bucket)
+    reported as shape-only and unused."""
     path = tmp_path / "cfg.yaml"
     path.write_text(f"tpu:\n  {key}: {json.dumps(value)}\n")
-    with pytest.raises(ValueError, match="ring v2 / v3.*item 4"):
-        tconfig.ConfigManager.load_from_yaml(str(path))
-    # at its JAX default the key is accepted
-    path.write_text(f"tpu:\n  {key}: "
-                    f"{json.dumps(tconfig.ROUTE_KEYS[key])}\n")
-    assert tconfig.ConfigManager.load_from_yaml(str(path)) == \
-        tconfig.TrainingConfig()
+    cfg = tconfig.ConfigManager.load_from_yaml(str(path))
+    want = jconfig.ConfigManager.load_from_yaml(str(path))
+    err = capsys.readouterr().err
+    if key in tconfig.SHAPE_ONLY_KEYS:
+        assert f"{key}={value!r}" in err
+        assert cfg == tconfig.TrainingConfig()
+    else:
+        assert getattr(cfg, key) == getattr(want, key) == value
+        assert cfg == dataclasses.replace(tconfig.TrainingConfig(),
+                                          **{key: value})
+        assert "[config]" not in err
 
 
 @pytest.mark.parametrize("key,value", [("shard_gauss_state", True),
@@ -182,7 +190,7 @@ def test_shape_only_keys_are_reported(tmp_path, capsys):
     for k in ("max_instances=4096", "gaussian_chunk=32", "steps_per_call="):
         assert k in err
     assert cfg == dataclasses.replace(tconfig.TrainingConfig(), capacity=512)
-    assert set(tconfig.SHAPE_ONLY_KEYS) | set(tconfig.ROUTE_KEYS) <= {
+    assert set(tconfig.SHAPE_ONLY_KEYS) <= {
         f.name for f in dataclasses.fields(jconfig.TrainingConfig)}
     tconfig.ConfigManager.load_from_yaml(str(CONFIGS[0]))
     assert "[config]" in capsys.readouterr().err

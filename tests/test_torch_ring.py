@@ -360,7 +360,9 @@ def test_ring_render_matches_jax_ring_and_single():
                                    atol=2e-6, err_msg=f"band vs single: {k}")
     assert sum(map(sum, t_ring["seg_live"])) == single["n_live"] \
         == sum(t_ring["n_live"])
-    assert t_band["n_live"] == [single["n_live"]] * 4
+    # the band route bins through the sharded sort (the capacity, 60,
+    # divides over the 4 bands): each rank counts its own band's instances
+    assert sum(t_band["n_live"]) == single["n_live"]
 
 
 @requires_8
