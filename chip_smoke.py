@@ -46,8 +46,14 @@ of each against ring v1 at phase 11's setting, with their times, launches
 and peak memory; the kernels with t0 against their plain versions on ring
 v3's launches; the sharded sort against the single-device binning of every
 band and the kernels without t0 on its heaviest band; `main_torch.py` over
-a (1, 2) mesh through ring v3 and ring v2.  Any failure raises; nothing
-falls back to the CPU.
+a (1, 2) mesh through ring v3 and ring v2.  Last, the mesh over two
+processes (phase 19): two children of scripts/distributed_step_torch.py
+join one gloo group on the card and take the replicated step and the
+gauss-sharded step over (2, 2), its sharded checkpoint, the band route and
+ring v1 / v3 over (1, 2), each against this process's single-process
+step, the kernels held against their plain versions on the children's own
+launches; and a one-process NCCL group runs one exchange.  Any failure
+raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -1576,6 +1582,208 @@ def ring_routes_phase(rc, dev, state, config, settings, cam) -> dict:
     return res
 
 
+DIST_STEPS = 5        # phase 19: timed steps a program, after the first
+DIST_TIMEOUT = 300    # phase 19: seconds a child may take
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_exchange_check() -> dict:
+    """Phase 19's NCCL path: a one-process NCCL group on cuda:0 and one
+    exchange of the port (`mesh._exchange`: the header lengths, the
+    headers, the payload, each an `all_to_all_single` on buffers on the
+    card) of a message to itself; the group is taken down after."""
+    import torch.distributed as dist
+    from mini3dgs_tpu_torch.parallel import distributed as D
+    from mini3dgs_tpu_torch.parallel import mesh as M
+    D.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                             backend="nccl", timeout=60)
+    try:
+        x = torch.randn(1000, 3, device="cuda")
+        k = torch.arange(17, dtype=torch.int32, device="cuda")
+        spec, leaves = [], []
+        M._encode((x, 5, [k]), spec, leaves)
+        got, _ = M._exchange([(0, 0, 0, spec, leaves)])
+        back = got[0][4]
+        ok = (dist.get_backend() == "nccl" and len(back) == 2
+              and all(t.is_cuda for t in back) and torch.equal(back[0], x)
+              and torch.equal(back[1], k))
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        raise AssertionError("19: the NCCL exchange did not return its "
+                             "message")
+    return {"backend": "nccl", "bytes": x.numel() * 4 + k.numel() * 4}
+
+
+def distributed_phase(rc, dev, g, cams, settings, extent: float,
+                      size: int = VIEW_SIZE) -> dict:
+    """Phase 19: the mesh over two OS processes on the one card.  Two
+    children run scripts/distributed_step_torch.py (gloo, the CUDA tensors
+    staged through the host) on the state of `g` two single-device steps
+    into training, tile 16: (a) the replicated step over (2, 2), data = the
+    processes, tile = 2 ranks each on the card, with the two cameras
+    `cams`; (b) that state split over (2, 2), saved and restored bitwise
+    (the child raises otherwise), then one gauss-sharded step; (c) the
+    band route, ring v1 and ring v3 over (1, 2), one rank a process, so
+    every ring hop crosses the processes, on `cams[0]`.  Gates: both
+    children exit 0 within DIST_TIMEOUT and agree bit for bit; against
+    this process's single-process steps on the same inputs, loss rel <=
+    1e-6 for every program and xyz max abs <= 1e-6 for (a) and (b); ring
+    v3 has no reshard drops; each child launched B1 / B2 in (a), (b) and
+    the band route, B3 / B4 in the ring steps.  (d) Each child's heaviest
+    backward launch without t0 (B1 on its inputs, B2 on its cotangent)
+    and with t0 (B3 / B4) held against the plain versions (`gate_acc`,
+    `gate_rows`, `gate_ring_step`).  (e) Host ms a step (median of
+    DIST_STEPS after the first) of each child's programs beside this
+    process's, the host ms of it in torch.distributed, and the bytes each
+    step puts through it.
+    Then the NCCL path (`nccl_exchange_check`).  Raises on any check that
+    fails."""
+    from mini3dgs_tpu_torch.config import TrainingConfig
+    from mini3dgs_tpu_torch.parallel.mesh import make_mesh
+    from mini3dgs_tpu_torch.train import trainer
+
+    ds = load_script("distributed_step_torch")
+    t_phase = time.perf_counter()
+    config = trainer.scale_position_lr(TrainingConfig(
+        image_height=size, image_width=size,
+        background_color=[1.0, 1.0, 1.0], tile_size=MESH_TILE_SIZE,
+        color_mode="sh", sh_degree=3, capacity=g.capacity), extent)
+    state = trainer.create_train_state(g, config)
+    for cam in cams:
+        state, _ = trainer.train_step(state, cam, config, settings)
+    setup = {"mesh": {"config": config, "settings": settings,
+                      "state": state, "cameras": list(cams)},
+             "ring": {"config": config, "settings": settings,
+                      "state": state, "cameras": [cams[0]]}}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        ds.write_setup(work / "setup.pt", setup)
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "scripts" /
+                                 "distributed_step_torch.py"),
+             "--device", dev.type, "--ranks", "2", "--ring-ranks", "1",
+             "--setup", str(work / "setup.pt"), "--out", str(work / "out"),
+             "--steps", str(DIST_STEPS), "--record",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(k), "--backend", "gloo", "--timeout", "120"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(REPO)) for k in range(2)]
+        texts = []
+        try:
+            for proc in procs:
+                texts.append(proc.communicate(timeout=DIST_TIMEOUT)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for proc, text in zip(procs, texts):
+            if proc.returncode != 0:
+                raise AssertionError(f"19: a child exited with "
+                                     f"{proc.returncode}:\n{text[-6000:]}")
+        reports = {}
+        for text in texts:
+            r = json.loads(text.strip().splitlines()[-1])
+            reports[r["process"]] = r
+        out = work / "out"
+        results = {k: torch.load(out / f"result.p{k}.pt", weights_only=True)
+                   for k in range(2)}
+        # the children record launches on the card only
+        records = {k: torch.load(out / f"kernels.p{k}.pt", weights_only=True,
+                                 map_location=dev)
+                   for k in range(2) if dev.type == "cuda"}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t_children = time.perf_counter() - t_phase
+
+    programs = ("p1", "p2", "p3_band", "p3_ring", "p4")
+    m22, m12 = make_mesh(2, 2, [dev]), make_mesh(1, 2, [dev])
+    single = {"p1": ds.replicated_step(setup["mesh"], m22, DIST_STEPS),
+              "p2": ds.gauss_sharded_step(setup["mesh"], m22, DIST_STEPS),
+              "p3_band": ds.replicated_step(setup["ring"], m12, DIST_STEPS),
+              "p3_ring": ds.replicated_step(setup["ring"], m12, DIST_STEPS,
+                                            ring=True),
+              "p4": ds.gauss_sharded_step(setup["ring"], m12, DIST_STEPS,
+                                          ring_local=True)}
+    a, b = results[0], results[1]
+    rows = {}
+    for key in programs:
+        same = a["losses"][key] == b["losses"][key] \
+            and torch.equal(a[key + "_xyz"], b[key + "_xyz"])
+        loss_rel = abs(a["losses"][key] / single[key]["loss"] - 1.0)
+        xyz = float((a[key + "_xyz"].to(dev) - single[key]["xyz"])
+                    .abs().max())
+        rows[key] = {
+            "loss": a["losses"][key], "loss_rel": loss_rel, "xyz_max": xyz,
+            "processes_bitwise": same,
+            "launches": [reports[k][key]["launches"] for k in range(2)],
+            "step_ms_median": [reports[k][key]["step_ms_median"]
+                               for k in range(2)],
+            "exchange_ms_median": [reports[k][key]["exchange_ms_median"]
+                                   for k in range(2)],
+            "single_step_ms_median": single[key]["step_ms_median"],
+            "bytes_a_step": [reports[k][key]["bytes"] for k in range(2)],
+            "calls_a_step": [reports[k][key]["calls"] for k in range(2)]}
+        ok = same and loss_rel <= 1e-6 and (
+            xyz <= 1e-6 if key in ("p1", "p2") else np.isfinite(xyz))
+        t0_build = key in ("p3_ring", "p4")
+        for k in range(2):
+            n = reports[k][key]["launches"]
+            used = n[2:] if t0_build else n[:2]
+            ok &= dev.type == "cpu" or min(used) > 0
+        if not ok:
+            raise AssertionError(f"19 {key}: {rows[key]}")
+    if not all(r["p2_checkpoint_bitwise"] and r["p4"]["reshard_drops"] == 0
+               and r["collectives"]["forward_bitwise"]
+               for r in reports.values()):
+        raise AssertionError(f"19: {reports}")
+
+    kernels = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_t0_err": 0.0,
+               "bwd_t0_err": 0.0, "instances": {}}
+    for k, rec in records.items():
+        if "bwd" not in rec or "bwd_t0" not in rec:
+            raise AssertionError(f"19: child {k} recorded {sorted(rec)}")
+        r = rec["bwd"]
+        fargs = (r["stream"], r["tile_start"], r["tile_count"], r["tiles_x"],
+                 r["tile_size"])
+        kw = dict(tile0=r["tile0"])
+        name = f"19 child{k} band tile0={r['tile0']}"
+        kernels["fwd_err"] = max(kernels["fwd_err"], gate_acc(
+            rc.raster_fwd(*fargs, **kw), rc.raster_fwd_plain(*fargs, **kw),
+            name))
+        bargs = (*fargs, r["acc"], r["gout"])
+        kernels["bwd_err"] = max(kernels["bwd_err"], gate_rows(
+            rc.raster_bwd(*bargs, **kw), rc.raster_bwd_plain(*bargs, **kw),
+            name))
+        r = rec["bwd_t0"]
+        band = 1 if r["tile0"] else 0
+        seg = (r["stream"], r["tile_start"], r["tile_count"])
+        acc = rc.raster_fwd(*seg, r["tiles_x"], r["tile_size"], t0=r["t0"],
+                            tile0=r["tile0"])
+        e3, e4 = gate_ring_step(
+            rc, {(band, 0): seg}, {(band, 0): r["t0"]}, {(band, 0): acc},
+            {(band, 0): r["gout"]}, r["tiles_x"], r["tile_size"],
+            max(r["tile0"], 1), tag=f"19 child{k} ")
+        kernels["fwd_t0_err"] = max(kernels["fwd_t0_err"], e3)
+        kernels["bwd_t0_err"] = max(kernels["bwd_t0_err"], e4)
+        kernels["instances"][k] = {key: int(v["stream"].shape[1])
+                                   for key, v in rec.items()}
+    nccl = nccl_exchange_check() if dev.type == "cuda" else None
+    return {"programs": rows, "kernels": kernels, "nccl": nccl,
+            "collectives": {k: r["collectives"] for k, r in reports.items()},
+            "child_seconds": [r["seconds"] for r in reports.values()],
+            "children_s": t_children,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
                         capacity: int = 2 ** 20) -> dict:
     """Phase 17: scripts/train_1m_torch.py on an 8-view 800^2 Blender scene
@@ -2705,7 +2913,46 @@ def main() -> int:
           f"(b) {t18c - t18:.1f} ({traced.seconds:.1f} of it under the "
           f"profiler and reading its traces), (c) "
           f"{time.perf_counter() - t18c:.1f}", flush=True)
-    print(f"chip_smoke: phases 1-18 passed in "
+
+    # ---- 19. the mesh over two processes on the one card ---------------
+    # Two children through gloo on phase 16's set, cameras and tile 16.
+    p19 = distributed_phase(rc, dev, g, mesh_cams, settings16,
+                            float(scene_extent_of(g)))
+    names19 = {"p1": "19a replicated step over (2, 2)",
+               "p2": "19b gauss-sharded step over (2, 2)",
+               "p3_band": "19c band route over (1, 2)",
+               "p3_ring": "19c ring v1 over (1, 2)",
+               "p4": "19c ring v3, state split, over (1, 2)"}
+    for key, row in p19["programs"].items():
+        print(f"[{names19[key]}, two processes] {VIEW_SIZE}^2 tile "
+              f"{MESH_TILE_SIZE}, {N_GAUSSIANS} Gaussians: loss "
+              f"{row['loss']:.6f}, against one process rel "
+              f"{row['loss_rel']:.2e}, xyz max {row['xyz_max']:.2e}, the two "
+              f"processes bitwise {row['processes_bitwise']}; launches (fwd, "
+              f"bwd, fwd t0, bwd t0) {row['launches']}; host ms a step median "
+              f"{row['step_ms_median'][0]:.2f} / {row['step_ms_median'][1]:.2f}"
+              f" (one process {row['single_step_ms_median']:.2f}), of it "
+              f"in torch.distributed {row['exchange_ms_median'][0]:.2f} / "
+              f"{row['exchange_ms_median'][1]:.2f}; bytes a "
+              f"step through torch.distributed {row['bytes_a_step']} in "
+              f"{row['calls_a_step']} calls | {smi}", flush=True)
+    k19 = p19["kernels"]
+    print(f"[19d the children's launches against the plain versions] "
+          f"instances {json.dumps(k19['instances'])}: B1 max "
+          f"{k19['fwd_err']:.2e}, B2 worst {k19['bwd_err']:.2e}, B3 max "
+          f"{k19['fwd_t0_err']:.2e}, B4 worst {k19['bwd_t0_err']:.2e}; the "
+          f"checkpoint over (2, 2) restored bitwise in both; collectives "
+          f"{json.dumps(p19['collectives'])}; NCCL, one process on the card: "
+          f"{json.dumps(p19['nccl'])}", flush=True)
+    print(f"[19] phase 19 took {p19['seconds']:.1f} s (the children "
+          f"{p19['children_s']:.1f} s, their programs "
+          f"{' / '.join(f'{t:.1f}' for t in p19['child_seconds'])} s) | "
+          f"{smi}", flush=True)
+    dist19 = lambda i, keys: sum(row["launches"][k][i] for key, row in
+                                 p19["programs"].items() if key in keys
+                                 for k in range(2))
+    band19, ring19 = ("p1", "p2", "p3_band"), ("p3_ring", "p4")
+    print(f"chip_smoke: phases 1-19 passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- result -------------------------------------------------------
@@ -2720,9 +2967,10 @@ def main() -> int:
          "launches_mesh_trainer": mesh_runs[0]["launches"][0],
          "launches_1m": e17["launches_1m"][0],
          "launches_band_sharded_sort": p18["sort"]["launches"][0],
+         "launches_distributed": dist19(0, band19),
          "max_abs_err": max(fwd_err, fwd_patch_err, e17["fwd_err"],
                             mesh_runs[0]["kernels"]["fwd_err"],
-                            p18["fwd_err"]),
+                            p18["fwd_err"], k19["fwd_err"]),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "raster_bwd", "route": "cuda",
@@ -2735,9 +2983,10 @@ def main() -> int:
          "launches_mesh_trainer": mesh_runs[0]["launches"][1],
          "launches_1m": e17["launches_1m"][1],
          "launches_band_sharded_sort": p18["sort"]["launches"][1],
+         "launches_distributed": dist19(1, band19),
          "max_abs_err": max(bwd_err, patch_err,
                             mesh_runs[0]["kernels"]["bwd_err"],
-                            p18["bwd_err"]),
+                            p18["bwd_err"], k19["bwd_err"]),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},
         # The two builds with t0: times, plain times and bounds are sums
@@ -2752,9 +3001,10 @@ def main() -> int:
          "launches_mesh_trainer": mesh_runs[1]["launches"][2],
          **{f"launches_ring_{r}": p18["routes"][r]["launches"][2]
             for r in ("v2", "v3")},
+         "launches_distributed": dist19(2, ring19),
          "max_abs_err": max(t0_err, t3["err"],
                             mesh_runs[1]["kernels"]["fwd_t0_err"],
-                            p18["fwd_t0_err"]),
+                            p18["fwd_t0_err"], k19["fwd_t0_err"]),
          "ms": t3["ms"],
          "ms_slowest_launch": t3["worst"], "plain_ms": t3["plain"],
          "bound_ms": t3["bound"], "bound_by": t3["by"], "library_ms": None},
@@ -2766,9 +3016,10 @@ def main() -> int:
          "launches_mesh_trainer": mesh_runs[1]["launches"][3],
          **{f"launches_ring_{r}": p18["routes"][r]["launches"][3]
             for r in ("v2", "v3")},
+         "launches_distributed": dist19(3, ring19),
          "max_abs_err": max(dt0_err, patch_t0_err, t4["err"],
                             mesh_runs[1]["kernels"]["bwd_t0_err"],
-                            p18["bwd_t0_err"]),
+                            p18["bwd_t0_err"], k19["bwd_t0_err"]),
          "ms": t4["ms"],
          "ms_slowest_launch": t4["worst"], "plain_ms": t4["plain"],
          "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None}],
@@ -2796,7 +3047,12 @@ def main() -> int:
             "n_live", "psnr")},
         "one_million_b2_rel_l2_from_float64": {
             "kernel": e17["rel_k"], "plain_float32": e17["rel_32"]},
-        "probe_psnr": e17["probe"]["psnr"]}))
+        "probe_psnr": e17["probe"]["psnr"],
+        "distributed": {
+            key: {k: row[k] for k in (
+                "loss_rel", "xyz_max", "step_ms_median", "exchange_ms_median",
+                "single_step_ms_median", "bytes_a_step")}
+            for key, row in p19["programs"].items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -106,15 +106,16 @@ HALO = 5  # window_size // 2 for the fixed K = 11 window
 def _halo_extend(bands: Sequence[torch.Tensor],
                  devices: Sequence) -> List[torch.Tensor]:
     """Each [C, bh, W] band -> [C, bh + 2 * HALO, W] with its neighbours'
-    border rows (zeros at the image's ends)."""
+    border rows (zeros at the image's ends); None for the bands of other
+    processes."""
     n = len(bands)
-    tops = [b[:, :HALO] for b in bands]
-    bots = [b[:, -HALO:] for b in bands]
+    tops = [None if b is None else b[:, :HALO] for b in bands]
+    bots = [None if b is None else b[:, -HALO:] for b in bands]
     # the previous band's bottom rows become my top halo, the next band's
     # top rows my bottom halo
     prev_bot = M.ppermute(bots, [(i, i + 1) for i in range(n - 1)], devices)
     next_top = M.ppermute(tops, [(i + 1, i) for i in range(n - 1)], devices)
-    return [torch.cat([p, b, t], dim=1)
+    return [None if b is None else torch.cat([p, b, t], dim=1)
             for p, b, t in zip(prev_bot, bands, next_top)]
 
 
@@ -128,10 +129,13 @@ def gaussian_loss_banded(band_preds: Sequence[torch.Tensor],
     `band_preds[i]` / `band_targets[i]` are rank i's [3, bh, W] rows on
     `devices[i]`.  Returns, per rank, the loss of the WHOLE image (summed
     over the ranks) and its components: equal to `gaussian_loss` on the
-    assembled image up to the order of the final sums."""
+    assembled image up to the order of the final sums.  The bands of
+    other processes' ranks are None, and so are their entries of the
+    result; the gradient of a rank's loss reaches its own process's bands
+    (`mesh.psum`)."""
     if window_size != 2 * HALO + 1:
         raise ValueError("the halo is derived for the K = 11 window")
-    C, bh, W = band_preds[0].shape
+    C, bh, W = band_preds[M.local_ranks(devices)[0]].shape
     if bh < HALO:
         raise ValueError(f"bands of {bh} rows are thinner than the halo")
     denom = C * bh * len(devices) * W
@@ -140,6 +144,10 @@ def gaussian_loss_banded(band_preds: Sequence[torch.Tensor],
     l1_sums, ssim_sums = [], []
     for p_band, t_band, pred, target in zip(band_preds, band_targets, preds,
                                             targets):
+        if pred is None:
+            l1_sums.append(None)
+            ssim_sums.append(None)
+            continue
         pred, target = pred[None], target[None]
         g1d = _gaussian_window(window_size, pred.device).to(pred.dtype)
         # 'same' along x, 'valid' along y: on a band extended by its halo
@@ -159,6 +167,9 @@ def gaussian_loss_banded(band_preds: Sequence[torch.Tensor],
     out = []
     for l1_sum, ssim_sum in zip(M.psum(l1_sums, devices),
                                 M.psum(ssim_sums, devices)):
+        if l1_sum is None:
+            out.append(None)
+            continue
         l1 = l1_sum / denom
         d = 1.0 - ssim_sum / denom
         total = (1.0 - lambda_dssim) * l1 + lambda_dssim * d

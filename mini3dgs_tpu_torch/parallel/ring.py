@@ -35,11 +35,13 @@ Schedule (rank i = owner of band i = owner of range i):
      not yet consumed one hop backward (j -> j - 1).
 
 The ranks are a Python loop (parallel/mesh.py); with every rank on one card
-the exchanges move nothing.  The output differs from a single pass only by
-float32 association at the segment borders.  Gradients flow through the
-transmittance chain (the backward kernel's `d_t0`), through the exchanges
-back to the origin packs and, in v2 / v3, through the reshard back to the
-gid owners' rows.
+the exchanges move nothing.  Over ranks of several processes each process
+runs the loop over its own ranks (the others' entries are None), and every
+exchange crosses the processes once for all of them.  The output differs
+from a single pass only by float32 association at the segment borders.
+Gradients flow through the transmittance chain (the backward kernel's
+`d_t0`), through the exchanges back to the origin packs and, in v2 / v3,
+through the reshard back to the gid owners' rows.
 """
 
 from __future__ import annotations
@@ -97,23 +99,24 @@ def distributed_ranks(depths: Sequence[torch.Tensor],
     (blocks of lower gids).  The keys are detached: ranking is routing
     metadata."""
     n = len(devices)
+    mine = M.local_ranks(devices)
     keys = [torch.where(v, d.detach().float(),
                         torch.full_like(d, torch.inf, dtype=torch.float32))
-            for d, v in zip(depths, visibles)]
-    blocks, total = [], []
-    for key in keys:
-        s, perm = torch.sort(key, stable=True)
-        blocks.append(s)
-        total.append(B.inverse_permutation(perm))
+            if i in mine else None
+            for i, (d, v) in enumerate(zip(depths, visibles))]
+    blocks, total = [None] * n, [None] * n
+    for i in mine:
+        blocks[i], perm = torch.sort(keys[i], stable=True)
+        total[i] = B.inverse_permutation(perm)
     hop = [(j, (j - 1) % n) for j in range(n)]
     for s in range(1, n):
         blocks = M.ppermute(blocks, hop, devices)
-        for i in range(n):
+        for i in mine:
             # rank i now holds the sorted block of rank (i + s) mod n
             total[i] = total[i] + torch.searchsorted(
                 blocks[i], keys[i], right=(i + s) % n < i)
     return [torch.where(v, t, torch.full_like(t, RANK_SENTINEL))
-            for t, v in zip(total, visibles)]
+            if t is not None else None for t, v in zip(total, visibles)]
 
 
 def rank_reshard_rows(mats: Sequence[torch.Tensor],
@@ -130,9 +133,12 @@ def rank_reshard_rows(mats: Sequence[torch.Tensor],
     Differentiable with respect to `mats`: the cotangents go back to the
     gid owners through `index_select`, `.to` and `cat`."""
     n = len(devices)
-    Cs = mats[0].shape[0]
+    Cs = mats[M.local_ranks(devices)[0]].shape[0]
     send = []
     for mat, rank in zip(mats, ranks):
+        if mat is None:
+            send.append(None)
+            continue
         s_rank, perm = torch.sort(rank)
         cuts = torch.arange(n + 1, device=rank.device) * Cs
         bounds = torch.searchsorted(s_rank, cuts).tolist()
@@ -141,6 +147,9 @@ def rank_reshard_rows(mats: Sequence[torch.Tensor],
                       s_rank[bounds[d]:bounds[d + 1]]) for d in range(n)])
     out = []
     for d, got in enumerate(M.all_to_all(send, devices)):
+        if got is None:
+            out.append(None)
+            continue
         rows = torch.cat([r for r, _ in got])
         local = torch.cat([k for _, k in got]) - d * Cs
         # The last row of `padded` is zero: every local rank that no row
@@ -158,13 +167,13 @@ def _rank_local_rows(blocks: Sequence[Projected],
     """Ring v2 / v3's first stage: from rank i's gid block `blocks[i]` of
     the projected set, each rank's C/n projected rows of its depth-rank
     range, in rank order."""
+    field = lambda f, ps: [None if p is None else f(p) for p in ps]
     with record_function("3dgs:ring_ranks"):
-        ranks = distributed_ranks([p.depth for p in blocks],
-                                  [p.visible for p in blocks], devices)
+        ranks = distributed_ranks(field(lambda p: p.depth, blocks),
+                                  field(lambda p: p.visible, blocks), devices)
     with record_function("3dgs:ring_reshard"):
-        rows, _ = rank_reshard_rows([_as_rows(p) for p in blocks], ranks,
-                                    devices)
-    return [_from_rows(m) for m in rows]
+        rows, _ = rank_reshard_rows(field(_as_rows, blocks), ranks, devices)
+    return field(_from_rows, rows)
 
 
 def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
@@ -188,7 +197,8 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
         raise ValueError(f"a band of {band_h} rows is not whole "
                          f"{tile_size}-pixel tile rows")
     ntb = band_h // tile_size * tiles_x                 # tiles per band
-    C = projs[0].means2d.shape[0] * (n if gid_sharded else 1)
+    mine = M.local_ranks(devices)
+    C = projs[mine[0]].means2d.shape[0] * (n if gid_sharded else 1)
     local = None
     if gid_sharded or reshard:
         if C % n:
@@ -196,13 +206,14 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
                              "devices")
         Cs = C // n
         blocks = projs if gid_sharded else [
-            B.slice_rows(p, slice(i * Cs, (i + 1) * Cs))
+            None if p is None else B.slice_rows(p, slice(i * Cs, (i + 1) * Cs))
             for i, p in enumerate(projs)]
         local = _rank_local_rows(blocks, devices)
 
     # ---- origin: bin + pack MY rank range for all bands ----
-    send, origins = [], []
-    for i, proj in enumerate(projs):
+    send, origins = [None] * n, [None] * n
+    for i in mine:
+        proj = projs[i]
         with record_function("3dgs:ring_origin"):
             if local is None:
                 rb = B.bin_gaussians_ring_origin(proj, H, W, tile_size, i, n)
@@ -219,8 +230,8 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
                      .contiguous(), rb.tile_start[b], rb.tile_count[b])
                     for b in range(n)]
         # ---- pre-placement: segment b -> rank (b + i) mod n ----
-        send.append([segs[(d - i) % n] for d in range(n)])
-        origins.append(rb)
+        send[i] = [segs[(d - i) % n] for d in range(n)]
+        origins[i] = rb
     with record_function("3dgs:ring_exchange"):
         buf = M.all_to_all(send, devices)
     # entry r at rank j now holds (band (j - r) mod n, range r); after s
@@ -228,11 +239,11 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
 
     # ---- ring steps: raster entry 0 with the carried T, shift the rest ----
     perm = [(j, (j - 1) % n) for j in range(n)]
-    trans = [torch.ones(ntb, 1, P, dtype=torch.float32, device=d)
-             for d in devices]
+    trans = [torch.ones(ntb, 1, P, dtype=torch.float32, device=devices[j])
+             if j in mine else None for j in range(n)]
     acc = [None] * n
     for s in range(n):
-        for j in range(n):
+        for j in mine:
             stream, start, count = buf[j][0]
             with record_function("3dgs:ring_raster"):
                 out = RC.raster_op(stream, start, count, tiles_x, tile_size,
@@ -243,11 +254,12 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
             trans[j] = out[:, 5:6]
         if s + 1 < n:
             with record_function("3dgs:ring_exchange"):
-                buf = M.ppermute([entries[1:] for entries in buf], perm,
-                                 devices)
+                buf = M.ppermute([None if entries is None else entries[1:]
+                                  for entries in buf], perm, devices)
 
-    outs = []
-    for j, dev in enumerate(devices):
+    outs = [None] * n
+    for j in mine:
+        dev = devices[j]
         with record_function("3dgs:epilogue"):
             pad = torch.zeros(ntb, RC.N_ACC - 5, P, dtype=torch.float32,
                               device=dev)
@@ -255,9 +267,9 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
                 torch.cat([acc[j], pad], dim=1), band_h, W, tile_size,
                 torch.as_tensor(bg, dtype=torch.float32, device=dev))
         rb = origins[j]
-        outs.append({"image": image, "alpha": alpha, "depth": depth,
-                     "n_live": rb.n_live, "n_dropped": rb.n_dropped,
-                     "reshard_drops": 0,
-                     "seg_live": [rb.seg_start[b + 1] - rb.seg_start[b]
-                                  for b in range(n)]})
+        outs[j] = {"image": image, "alpha": alpha, "depth": depth,
+                   "n_live": rb.n_live, "n_dropped": rb.n_dropped,
+                   "reshard_drops": 0,
+                   "seg_live": [rb.seg_start[b + 1] - rb.seg_start[b]
+                                for b in range(n)]}
     return outs

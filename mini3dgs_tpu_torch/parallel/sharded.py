@@ -38,6 +38,21 @@ already the sum over bands and the mean over cameras, delivered to each
 leaf where it lives.  None of the JAX package's psum-transpose factors
 exists here.  `verify_shard_grad_parity` holds either layout's gradients
 against single-device autograd at setup.
+
+Over ranks of several processes (parallel/distributed.py) both train steps
+run each process's own ranks (the others' entries are None in every
+per-rank list) and differ in three places only.  Each process takes the
+backward of its own copy of the loss, whose other processes' terms arrived
+detached (`mesh.psum`, and the mean over cameras here), so each term is
+differentiated once.  The gradients of what every process holds (the
+replicated state, the probe, the exposure table) are then added over the
+processes by one `mesh.all_reduce_sum`, so the replicas take the same Adam
+step bit for bit; a gauss-sharded row gets its gradient through the
+exchanges' backward alone.  And what a process did not compute (other
+cameras' losses, other ranks' counters, the first camera's radii and
+visibility that the replicated state's statistics take) arrives after the
+forward pass through `mesh.gather_processes`.  The renderers, densify and
+`verify_shard_grad_parity` take one process's mesh only.
 """
 
 from __future__ import annotations
@@ -85,11 +100,8 @@ def _projection_kw(settings: RenderSettings) -> dict:
 def _gather_projected(shards: Sequence[Projected],
                       devices: Sequence) -> List[Projected]:
     """Every rank receives the ranks' projected rows concatenated in rank
-    order (one all_gather per field)."""
-    fields = [M.all_gather([sh[f] for sh in shards], devices)
-              for f in range(len(Projected._fields))]
-    return [Projected(*(field[i] for field in fields))
-            for i in range(len(devices))]
+    order (an all_gather, field by field)."""
+    return M.all_gather(list(shards), devices)
 
 
 def _project(gs: Sequence[Gaussians], cameras: Sequence[Camera],
@@ -101,12 +113,13 @@ def _project(gs: Sequence[Gaussians], cameras: Sequence[Camera],
     when C does not divide over the ranks every rank projects the whole
     pool."""
     kw = _projection_kw(settings)
-    n, C = len(devices), gs[0].capacity
+    n, C = len(devices), gs[M.local_ranks(devices)[0]].capacity
     if n <= 1 or C % n:
-        return [project_gaussians(g, cam, **kw)
+        return [None if g is None else project_gaussians(g, cam, **kw)
                 for g, cam in zip(gs, cameras)]
     Cs = C // n
-    shards = [project_gaussians(g.slots(i * Cs, (i + 1) * Cs), cam, **kw)
+    shards = [None if g is None else
+              project_gaussians(g.slots(i * Cs, (i + 1) * Cs), cam, **kw)
               for i, (g, cam) in enumerate(zip(gs, cameras))]
     return _gather_projected(shards, devices)
 
@@ -131,13 +144,17 @@ def bin_gaussians_sharded(projs: Sequence[Projected], band_h: int, W: int,
     order is one stable sort over the full set on every rank, as in the
     JAX package."""
     n = len(devices)
-    C = projs[0].means2d.shape[0]
+    C = projs[M.local_ranks(devices)[0]].means2d.shape[0]
     if band_h % tile_size:
         raise ValueError(f"a band of {band_h} rows is not whole "
                          f"{tile_size}-pixel tile rows")
     ntb = band_h // tile_size * -(-W // tile_size)
     send, orders = [], []
     for i, proj in enumerate(projs):
+        if proj is None:
+            send.append(None)
+            orders.append(None)
+            continue
         s_key, order, rank = B.shard_keys(
             proj, band_h * n, W, tile_size, slice(i * C // n,
                                                   (i + 1) * C // n))
@@ -146,10 +163,10 @@ def bin_gaussians_sharded(projs: Sequence[Projected], band_h: int, W: int,
         send.append([s_key[bounds[b]:bounds[b + 1]] for b in range(n)])
         orders.append((order, rank))
     recv = M.all_to_all(send, devices)
-    return [B.band_binning(
+    return [None if keys is None else B.band_binning(
         torch.sort(torch.cat(keys)).values if n > 1 else keys[0],
-        order, rank, i * ntb, ntb)
-        for i, (keys, (order, rank)) in enumerate(zip(recv, orders))]
+        *order_rank, i * ntb, ntb)
+        for i, (keys, order_rank) in enumerate(zip(recv, orders))]
 
 
 def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
@@ -164,7 +181,7 @@ def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
             f"the band-sharded render runs the tile kernels only, not "
             f"raster={settings.raster!r}")
     if settings.ring:
-        C = projs[0].means2d.shape[0]
+        C = projs[M.local_ranks(devices)[0]].means2d.shape[0]
         if C % n:
             raise ValueError(
                 f"settings.ring: the pool's capacity {C} does not divide "
@@ -176,7 +193,7 @@ def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
     with record_function("3dgs:binning"):
         bins = bin_gaussians_sharded(projs, band_h, W, settings.tile_size,
                                      devices)
-    return [rasterize_tiles(
+    return [None if proj is None else rasterize_tiles(
         proj, band_h, W,
         torch.as_tensor(settings.bg_color, dtype=torch.float32, device=dev),
         tile_size=settings.tile_size, row0=i * band_h, full_height=H,
@@ -198,16 +215,20 @@ def _band_loss(outs: Sequence[dict], camera: Camera, devices: Sequence,
                band_h: int, W: int, config: TrainingConfig,
                exposure: Optional[torch.Tensor], cam_idx: Optional[int]):
     """The banded L1 + D-SSIM of one camera's bands (with its affine
-    exposure applied to each band first): (total, parts) on devices[0]."""
+    exposure applied to each band first): (total, parts) on the device of
+    the first of this process's ranks."""
     with record_function("3dgs:loss"):
-        images = [o["image"] for o in outs]
+        images = [None if o is None else o["image"] for o in outs]
         if exposure is not None:
-            images = [apply_exposure(exposure.to(dev)[cam_idx], im)
+            images = [None if im is None else
+                      apply_exposure(exposure.to(dev)[cam_idx], im)
                       for im, dev in zip(images, devices)]
         targets = [camera.image.to(dev)[:, i * band_h:(i + 1) * band_h, :W]
+                   if M.is_local(dev) else None
                    for i, dev in enumerate(devices)]
         return gaussian_loss_banded(images, targets, devices,
-                                    config.lambda_dssim)[0]
+                                    config.lambda_dssim)[
+                                        M.local_ranks(devices)[0]]
 
 
 def _camera_mean(totals: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -215,22 +236,88 @@ def _camera_mean(totals: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(totals).mean()
 
 
-def _step_metrics(parts_all, n_live, n_dropped, n_visible,
-                  reshard_drops=None) -> dict:
-    """The step's metrics: the loss terms and the drops the mean over the
-    cameras (drops summed over each camera's bands), the fullest stream of
-    any rank; on the ring route also `reshard_drops`, rows of the rank
-    reshard (always 0 here: it moves every row)."""
+_PARTS = ("l1", "dssim", "total_loss")
+
+
+def _rank_counters(out: dict) -> tuple:
+    """(n_live, n_dropped, reshard_drops) of one band's render."""
+    return out["n_live"], out["n_dropped"], out.get("reshard_drops", 0)
+
+
+def _from_processes(mesh: M.Mesh, home, totals: list, parts_all: list,
+                    counters: list, extra=None):
+    """Across processes: fill in what this process did not compute from the
+    processes that did, after the forward pass.  `totals` / `parts_all`
+    are per camera and `counters` per rank (None where another process
+    holds the camera's or the rank's results); `extra` is a value that one
+    process holds and the others take.  The losses arrive detached, on
+    `home`: the gradient of the mean over cameras stays with each camera's
+    own process."""
+    got = M.gather_processes((
+        [None if t is None else t.detach() for t in totals],
+        [None if p is None else [p[k] for k in _PARTS] for p in parts_all],
+        counters, extra), home)
+
+    def held(pick):
+        return next(v for v in map(pick, got) if v is not None)
+
+    for d in range(len(totals)):
+        if totals[d] is None:
+            totals[d] = held(lambda g: g[0][d])
+            parts_all[d] = dict(zip(_PARTS, held(lambda g: g[1][d])))
+    counters = [held(lambda g: g[2][r]) for r in range(len(counters))]
+    if any(g[3] is not None for g in got):
+        extra = held(lambda g: g[3])
+    return totals, parts_all, counters, extra
+
+
+def _grads(total: torch.Tensor, wrt: list, cross: bool,
+           replicated: Sequence[int]) -> list:
+    """The gradients of `total` with respect to `wrt` (None where the loss
+    does not reach a leaf).  Across processes the leaves at the positions
+    `replicated` are held by every process: their gradients (zeros for
+    None) are added over the processes."""
+    with record_function("3dgs:backward"):
+        if not cross:
+            return list(torch.autograd.grad(total, wrt, allow_unused=True))
+        grads = list(torch.autograd.grad(total, wrt + [M.ANCHOR],
+                                         allow_unused=True)[:-1])
+    summed = M.all_reduce_sum([torch.zeros_like(wrt[i]) if grads[i] is None
+                               else grads[i] for i in replicated])
+    for i, g in zip(replicated, summed):
+        grads[i] = g
+    return grads
+
+
+def _step_metrics(parts_all, counters, n_visible, ring: bool,
+                  n_tile: int) -> dict:
+    """The step's metrics from each camera's loss terms and each rank's
+    counters (rank d * n_tile + t renders band t of camera d): the loss
+    terms and the drops the mean over the cameras (drops summed over each
+    camera's bands), the fullest stream of any rank; on the ring route
+    also `reshard_drops`, rows of the rank reshard (always 0 here: it moves
+    every row)."""
     metrics = {k: torch.stack([p[k] for p in parts_all]).mean()
                for k in parts_all[0]}
+    per_cam = lambda i: [sum(c[i] for c in counters[d:d + n_tile])
+                         for d in range(0, len(counters), n_tile)]
+    n_dropped = per_cam(1)
     metrics.update(
         render_drops=sum(n_dropped) / len(n_dropped),
         # the fullest stream of any rank, not the sum
-        render_instances=max(n_live),
+        render_instances=max(c[0] for c in counters),
         n_visible=n_visible)
-    if reshard_drops is not None:
-        metrics["reshard_drops"] = sum(reshard_drops) / len(reshard_drops)
+    if ring:
+        drops = per_cam(2)
+        metrics["reshard_drops"] = sum(drops) / len(drops)
     return metrics
+
+
+def _single_process(mesh: M.Mesh, what: str) -> None:
+    if M.spans_processes(mesh.devices):
+        raise NotImplementedError(
+            f"{what} runs over the ranks of one process; this mesh holds "
+            "ranks of others")
 
 
 def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
@@ -239,6 +326,7 @@ def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
     depth [1,H,W] assembled on the first rank's device, `n_live` (per
     rank) and, on the ring route, `seg_live[r][b]`: the instances of depth
     range r in band b."""
+    _single_process(mesh, "make_sharded_render")
     devices = mesh.tile_devices(0)
     band_h = _band_height(settings, mesh.tile)
 
@@ -262,15 +350,17 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
     into the state's exposure table.
 
     The state is replicated: it lives on its own device and every rank
-    works on a copy.  The image is band-sharded over `tile`; with
-    `state.exposure` each data rank applies its camera's affine exposure to
-    its bands before the banded loss (pointwise per pixel, so bands compose
-    exactly).  The statistic buffers take the radii and the visibility of
-    the first camera, as the JAX package's replicated step does.  With
-    `grads_only` the step returns (masked gradients, metrics) and updates
-    nothing."""
+    works on a copy (over several processes, every process holds one, and
+    the replicas stay equal bit for bit).  The image is band-sharded over
+    `tile`; with `state.exposure` each data rank applies its camera's
+    affine exposure to its bands before the banded loss (pointwise per
+    pixel, so bands compose exactly).  The statistic buffers take the radii
+    and the visibility of the first camera, as the JAX package's
+    replicated step does.  With `grads_only` the step returns (masked
+    gradients, metrics) and updates nothing."""
     band_h = _band_height(settings, mesh.tile)
     W = settings.image_width
+    cross = M.spans_processes(mesh.devices)
 
     def step(state: TrainState, cameras: Sequence[Camera],
              cam_idx: Optional[Sequence[int]] = None,
@@ -293,18 +383,26 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
             exposure = state.exposure.detach().requires_grad_(True)
         g = g0.with_params(params)
 
-        totals, parts_all, n_live, n_dropped = [], [], [], []
-        reshard_drops = []
+        totals, parts_all, counters = [], [], []
         radii = visible = None
         for d, camera in enumerate(cameras):
             devices = mesh.tile_devices(d)
-            gs = [g.to(dev) for dev in devices]
-            cams = [camera.to(dev) for dev in devices]
+            if not M.local_ranks(devices):
+                # another process renders this camera
+                totals.append(None)
+                parts_all.append(None)
+                counters += [None] * len(devices)
+                continue
+            here = [M.is_local(dev) for dev in devices]
+            gs = [g.to(dev) if h else None for dev, h in zip(devices, here)]
+            cams = [camera.to(dev) if h else None
+                    for dev, h in zip(devices, here)]
             with record_function("3dgs:projection"):
                 projs = _project(gs, cams, st, devices)
-                projs = [p._replace(means2d=p.means2d + probe.to(dev))
+                projs = [None if p is None else
+                         p._replace(means2d=p.means2d + probe.to(dev))
                          for p, dev in zip(projs, devices)]
-            if d == 0:
+            if d == 0 and here[0]:
                 radii = projs[0].radius.detach().to(home)
                 visible = projs[0].visible.to(home)
             outs = _render_bands(projs, st, band_h, devices)
@@ -314,19 +412,21 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
             totals.append(total.to(home))
             parts_all.append({k: v.detach().to(home)
                               for k, v in parts.items()})
-            n_live += [o["n_live"] for o in outs]
-            n_dropped.append(sum(o["n_dropped"] for o in outs))
-            if st.ring:
-                reshard_drops.append(sum(o["reshard_drops"] for o in outs))
+            counters += [None if o is None else _rank_counters(o)
+                         for o in outs]
+        if cross:
+            totals, parts_all, counters, first = _from_processes(
+                mesh, home, totals, parts_all, counters,
+                None if radii is None else (radii, visible))
+            radii, visible = first
         total = _camera_mean(totals)
 
         wrt = list(params.values()) + [probe]
         if exposure is not None:
             wrt.append(exposure)
-        with record_function("3dgs:backward"):
-            grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
-        metrics = _step_metrics(parts_all, n_live, n_dropped, visible.sum(),
-                                reshard_drops or None)
+        grads_all = _grads(total, wrt, cross, range(len(wrt)))
+        metrics = _step_metrics(parts_all, counters, visible.sum(), st.ring,
+                                mesh.tile)
         if grads_only:
             return mask_dead_gradients(params, grads_all, g0.alive), metrics
         new_state = apply_gradients(state, params, probe, exposure,
@@ -362,22 +462,29 @@ def _rank_of(mesh: M.Mesh, d: int, t: int) -> int:
 class GaussShardedState:
     """A `TrainState` split over the ranks of a mesh: `shards[r]` is rank
     r's own `TrainState`, on `mesh.devices[r]`, holding the C/n slots of
-    global block `gauss_block(mesh, r)` of every [C, ...] leaf.  `step`,
-    the Adam counts and the exposure table (with its Adam state) are
-    replicated: every shard has them, equal."""
+    global block `gauss_block(mesh, r)` of every [C, ...] leaf (None for a
+    rank of another process).  `step`, the Adam counts and the exposure
+    table (with its Adam state) are replicated: every shard has them,
+    equal."""
 
-    shards: List[TrainState]
+    shards: List[Optional[TrainState]]
+
+    @property
+    def _first(self) -> TrainState:
+        return next(s for s in self.shards if s is not None)
 
     @property
     def step(self) -> int:
-        return self.shards[0].step
+        return self._first.step
 
     @property
     def capacity(self) -> int:
-        return sum(s.gaussians.capacity for s in self.shards)
+        return self._first.gaussians.capacity * len(self.shards)
 
     def num_alive(self) -> int:
-        return sum(s.gaussians.num_alive() for s in self.shards)
+        """The live slots of this process's ranks."""
+        return sum(s.gaussians.num_alive() for s in self.shards
+                   if s is not None)
 
 
 def _copy_to(x, device):
@@ -398,7 +505,8 @@ def shard_train_state(state: TrainState, mesh: M.Mesh) -> GaussShardedState:
     """Split `state` over the mesh: every [C, ...] leaf (each field of the
     pool, each Adam moment) by rows, the rest replicated -- the JAX
     package's `train_state_specs`, which torch needs no annotations for.
-    The shards are copies: they share no storage with `state`.  Raises
+    The shards are copies: they share no storage with `state`.  Over
+    several processes each process keeps its own ranks' shards.  Raises
     ValueError when the capacity does not divide over the ranks."""
     C = state.gaussians.capacity
     n = mesh.data * mesh.tile
@@ -410,6 +518,9 @@ def shard_train_state(state: TrainState, mesh: M.Mesh) -> GaussShardedState:
     Cs = C // n
     shards = []
     for r, dev in enumerate(mesh.devices):
+        if not M.is_local(dev):
+            shards.append(None)
+            continue
         b = gauss_block(mesh, r)
         rows = slice(b * Cs, (b + 1) * Cs)
         g = state.gaussians._map(lambda x: _copy_to(x[rows], dev))
@@ -426,44 +537,87 @@ def _by_block(mesh: M.Mesh) -> List[int]:
                   key=lambda r: gauss_block(mesh, r))
 
 
+def _every_rank(xs: Sequence, mesh: M.Mesh, device) -> list:
+    """Per-rank values (tensors, or tuples of them) with the entries of
+    other processes' ranks filled in from them, on `device`, without
+    autograd; `xs` itself in one process."""
+    if not M.spans_processes(mesh.devices):
+        return list(xs)
+    got = M.gather_processes(list(xs), device)
+    return [next(g[r] for g in got if g[r] is not None)
+            for r in range(len(xs))]
+
+
 def _gather_rows(xs: Sequence[torch.Tensor], mesh: M.Mesh,
                  device) -> torch.Tensor:
     """Per-rank row blocks `xs[r]` concatenated in global slot order on
     `device`."""
+    xs = _every_rank(xs, mesh, device)
     return torch.cat([xs[r].to(device) for r in _by_block(mesh)])
+
+
+_POOL_FIELDS = tuple(f.name for f in dataclasses.fields(Gaussians))
 
 
 def _cat_gaussians(gs: Sequence[Gaussians], device) -> Gaussians:
     """Row blocks of the pool concatenated on `device` (differentiable)."""
-    return Gaussians(**{f.name: torch.cat([getattr(g, f.name).to(device)
-                                           for g in gs])
-                        for f in dataclasses.fields(Gaussians)})
+    return Gaussians(**{k: torch.cat([getattr(g, k).to(device) for g in gs])
+                        for k in _POOL_FIELDS})
 
 
 def gather_gaussians(shards: Sequence[Gaussians], mesh: M.Mesh,
                      device) -> Gaussians:
     """The whole pool on `device` from its per-rank blocks."""
+    if M.spans_processes(mesh.devices):
+        fields = _every_rank([None if g is None else
+                              tuple(getattr(g, k) for k in _POOL_FIELDS)
+                              for g in shards], mesh, device)
+        shards = [Gaussians(**dict(zip(_POOL_FIELDS, f))) for f in fields]
     return _cat_gaussians([shards[r] for r in _by_block(mesh)], device)
 
 
 def gather_train_state(state: GaussShardedState, mesh: M.Mesh,
                        device=None) -> TrainState:
     """The inverse of `shard_train_state`, bit for bit: the whole state on
-    `device` (default the first rank's)."""
-    device = mesh.devices[0] if device is None else device
+    `device` (default the device of this process's first rank).  Over
+    several processes every process receives it."""
+    device = mesh.devices[mesh.local_ranks()[0]] if device is None \
+        else device
     shards = state.shards
-    first = shards[0]
+    first = state._first
     opt = first.opt_state
     rows = lambda slot, k: _gather_rows(
-        [getattr(s.opt_state, slot)[k] for s in shards], mesh, device)
+        [None if s is None else getattr(s.opt_state, slot)[k]
+         for s in shards], mesh, device)
     return TrainState(
-        gaussians=gather_gaussians([s.gaussians for s in shards], mesh,
-                                   device),
+        gaussians=gather_gaussians([None if s is None else s.gaussians
+                                    for s in shards], mesh, device),
         opt_state=AdamState(count=opt.count, sched_count=opt.sched_count,
                             mu={k: rows("mu", k) for k in opt.mu},
                             nu={k: rows("nu", k) for k in opt.nu}),
         step=first.step, exposure=_copy_to(first.exposure, device),
         exp_opt_state=_adam_copy(first.exp_opt_state, device))
+
+
+def _data_blocks(mesh: M.Mesh, local: Sequence[Gaussians],
+                 probes: Sequence[torch.Tensor]) -> dict:
+    """For each rank (d, t) of this process: the pool rows of ranks (d', t)
+    for every d' (one contiguous block of slots) and their probes, as one
+    all_gather over the data axis at each t (differentiable)."""
+    blocks = {}
+    for t in range(mesh.tile):
+        if not M.local_ranks(mesh.data_devices(t)):
+            continue  # another process holds this axis
+        ranks = [_rank_of(mesh, d, t) for d in range(mesh.data)]
+        got = M.all_gather(
+            [None if local[r] is None else
+             tuple(getattr(local[r], k) for k in _POOL_FIELDS) + (probes[r],)
+             for r in ranks], mesh.data_devices(t))
+        for r, fields in zip(ranks, got):
+            if fields is not None:
+                blocks[r] = (Gaussians(**dict(zip(_POOL_FIELDS, fields))),
+                             fields[-1])
+    return blocks
 
 
 def make_gauss_sharded_train_step(config: TrainingConfig,
@@ -489,10 +643,15 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
     radius and visibility of each rank's own rows under its own data
     camera, as the JAX package's gauss-sharded step does.  With
     `grads_only` the step returns (the masked gradients gathered in global
-    slot order on the first rank's device, metrics) and updates nothing."""
+    slot order on the first rank's device, metrics) and updates nothing.
+    The data gathers run before the cameras (over several processes every
+    process takes part in each), and the state's entries of other
+    processes' ranks are None."""
     band_h = _band_height(settings, mesh.tile)
     W = settings.image_width
     n_data, n_tile = mesh.data, mesh.tile
+    mine = mesh.local_ranks()
+    cross = M.spans_processes(mesh.devices)
 
     def step(state: GaussShardedState, cameras: Sequence[Camera],
              cam_idx: Optional[Sequence[int]] = None,
@@ -505,33 +664,43 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
         kw = _projection_kw(st)
         ring_local = st.ring and st.ring_local and n_tile > 1
         shards = state.shards
-        Cs = shards[0].gaussians.capacity
-        home = mesh.devices[0]
-        params = [{k: v.detach().requires_grad_(True)
+        first = state._first
+        Cs = first.gaussians.capacity
+        home = mesh.devices[mine[0]]
+        params = [None if s is None else
+                  {k: v.detach().requires_grad_(True)
                    for k, v in s.gaussians.params().items()} for s in shards]
         probes = [torch.zeros(Cs, 2, dtype=torch.float32, device=dev,
-                              requires_grad=True) for dev in mesh.devices]
+                              requires_grad=True) if M.is_local(dev) else None
+                  for dev in mesh.devices]
         exposure = None
-        if shards[0].exposure is not None:
-            exposure = shards[0].exposure.detach().requires_grad_(True)
-        local = [s.gaussians.with_params(p) for s, p in zip(shards, params)]
+        if first.exposure is not None:
+            exposure = first.exposure.detach().requires_grad_(True)
+        local = [None if s is None else s.gaussians.with_params(p)
+                 for s, p in zip(shards, params)]
+        blocks = _data_blocks(mesh, local, probes)
 
-        totals, parts_all, n_live, n_dropped = [], [], [], []
-        reshard_drops = []
+        totals, parts_all, counters = [], [], []
         radii, visible = [None] * len(shards), [None] * len(shards)
         for d, camera in enumerate(cameras):
             devices = mesh.tile_devices(d)
+            if not M.local_ranks(devices):
+                totals.append(None)
+                parts_all.append(None)
+                counters += [None] * n_tile
+                continue
             slices = []
             with record_function("3dgs:projection"):
                 for t, dev in enumerate(devices):
-                    peers = [_rank_of(mesh, dd, t) for dd in range(n_data)]
-                    block = _cat_gaussians([local[r] for r in peers], dev)
-                    probe = torch.cat([probes[r].to(dev) for r in peers])
+                    r = _rank_of(mesh, d, t)
+                    if not M.is_local(dev):
+                        slices.append(None)
+                        continue
+                    block, probe = blocks[r]
                     proj = project_gaussians(block, camera.to(dev), **kw)
                     proj = proj._replace(means2d=proj.means2d + probe)
                     # this rank's own rows sit at position d of the block
                     own = slice(d * Cs, (d + 1) * Cs)
-                    r = _rank_of(mesh, d, t)
                     radii[r] = proj.radius[own].detach()
                     visible[r] = proj.visible[own]
                     slices.append(proj)
@@ -550,35 +719,45 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
             totals.append(total.to(home))
             parts_all.append({k: v.detach().to(home)
                               for k, v in parts.items()})
-            n_live += [o["n_live"] for o in outs]
-            n_dropped.append(sum(o["n_dropped"] for o in outs))
-            if st.ring:
-                reshard_drops.append(sum(o["reshard_drops"] for o in outs))
+            counters += [None if o is None else _rank_counters(o)
+                         for o in outs]
+        vis_sums = [None if v is None else v.sum() for v in visible]
+        if cross:
+            counters = [None if c is None else (*c, v)
+                        for c, v in zip(counters, vis_sums)]
+            totals, parts_all, counters, _ = _from_processes(
+                mesh, home, totals, parts_all, counters)
+            vis_sums = [c[3] for c in counters]
         total = _camera_mean(totals)
 
-        n_params = len(params[0])
-        wrt = [v for p in params for v in p.values()] + probes
+        n_params = len(params[mine[0]])
+        wrt = [v for r in mine for v in params[r].values()] \
+            + [probes[r] for r in mine]
         if exposure is not None:
             wrt.append(exposure)
-        with record_function("3dgs:backward"):
-            grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
-        n_visible = sum(v.sum().to(home) for v in visible)
-        metrics = _step_metrics(parts_all, n_live, n_dropped, n_visible,
-                                reshard_drops or None)
-        rank_grads = []
-        for r, dev in enumerate(mesh.devices):
-            own = list(grads_all[r * n_params:(r + 1) * n_params])
-            own.append(grads_all[len(params) * n_params + r])
+        # the exposure table is the one leaf that every process holds
+        grads_all = _grads(total, wrt, cross,
+                           [len(wrt) - 1] if exposure is not None else [])
+        n_visible = sum(v.to(home) for v in vis_sums)
+        metrics = _step_metrics(parts_all, counters, n_visible, st.ring,
+                                n_tile)
+        rank_grads = [None] * len(shards)
+        for k, r in enumerate(mine):
+            own = list(grads_all[k * n_params:(k + 1) * n_params])
+            own.append(grads_all[len(mine) * n_params + k])
             if exposure is not None:
                 gr = grads_all[-1]
-                own.append(None if gr is None else gr.to(dev))
-            rank_grads.append(own)
+                own.append(None if gr is None else gr.to(mesh.devices[r]))
+            rank_grads[r] = own
         if grads_only:
-            masked = [mask_dead_gradients(p, gr, s.gaussians.alive)
+            masked = [None if p is None else
+                      mask_dead_gradients(p, gr, s.gaussians.alive)
                       for p, gr, s in zip(params, rank_grads, shards)]
-            return {k: _gather_rows([m[k] for m in masked], mesh, home)
-                    for k in masked[0]}, metrics
-        new = [apply_gradients(s, p, probe, s.exposure, gr, config, st,
+            return {k: _gather_rows([None if m is None else m[k]
+                                     for m in masked], mesh, home)
+                    for k in masked[mine[0]]}, metrics
+        new = [None if s is None else
+               apply_gradients(s, p, probe, s.exposure, gr, config, st,
                                rad, vis)
                for s, p, probe, gr, rad, vis in zip(
                    shards, params, probes, rank_grads, radii, visible)]
@@ -595,6 +774,7 @@ def make_gauss_sharded_render(settings: RenderSettings,
     the projected set in global slot order on the ranks of the tile axis,
     the bands render and the image is assembled on the first rank's device.
     The parameters are never gathered."""
+    _single_process(mesh, "make_gauss_sharded_render")
     devices = mesh.tile_devices(0)
     band_h = _band_height(settings, mesh.tile)
     kw = _projection_kw(settings)
