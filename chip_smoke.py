@@ -52,8 +52,15 @@ join one gloo group on the card and take the replicated step and the
 gauss-sharded step over (2, 2), its sharded checkpoint, the band route and
 ring v1 / v3 over (1, 2), each against this process's single-process
 step, the kernels held against their plain versions on the children's own
-launches; and a one-process NCCL group runs one exchange.  Any failure
-raises; nothing falls back to the CPU.
+launches; then four children of one rank each over (2, 2), whose rows and
+columns each cross two processes through a group of their own: both steps,
+both renderers, the gradient self-check and a (1, 2) step that leaves two
+of them without a rank (the two-process group runs the renderers too, over
+(2, 2) and over (1, 2) on both routes); and a one-process NCCL group runs
+one exchange.  Last (phase 20), graft_entry_torch.py, the twin of
+__graft_entry__.py: `entry()` on the card and `dryrun_multichip(8)` on
+eight ranks of the card, its losses against the JAX dryrun's record.  Any
+failure raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -1621,28 +1628,166 @@ def nccl_exchange_check() -> dict:
     return {"backend": "nccl", "bytes": x.numel() * 4 + k.numel() * 4}
 
 
+def run_children(dev, setup_file: Path, out: Path, n: int, *extra) -> tuple:
+    """`n` children of scripts/distributed_step_torch.py in one gloo group
+    on `dev` (the CUDA tensors staged through the host), on the setup in
+    `setup_file`, each with DIST_STEPS timed steps a program and the
+    inputs of its heaviest backward launches recorded, and `extra` flags.
+    Raises unless every child exits 0 within DIST_TIMEOUT.  Returns
+    (reports, results, records) by process; records on the card only."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "scripts" / "distributed_step_torch.py"),
+         "--device", dev.type, "--setup", str(setup_file), "--out", str(out),
+         "--steps", str(DIST_STEPS), "--record",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+         "--process-id", str(k), "--backend", "gloo", "--timeout", "120",
+         *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(REPO)) for k in range(n)]
+    texts = []
+    try:
+        for proc in procs:
+            texts.append(proc.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, text in zip(procs, texts):
+        if proc.returncode != 0:
+            raise AssertionError(f"19: a child of {n} exited with "
+                                 f"{proc.returncode}:\n{text[-6000:]}")
+    reports = {}
+    for text in texts:
+        r = json.loads(text.strip().splitlines()[-1])
+        reports[r["process"]] = r
+    results = {k: torch.load(out / f"result.p{k}.pt", weights_only=True)
+               for k in range(n)}
+    records = {k: torch.load(out / f"kernels.p{k}.pt", weights_only=True,
+                             map_location=dev)
+               for k in range(n) if dev.type == "cuda"}
+    return reports, results, records
+
+
+def program_rows(dev, reports, results, single, programs) -> dict:
+    """Each program of `programs` in the children against this process's
+    `single` step on the same inputs: every child that holds a rank bitwise
+    child 0, loss rel <= 1e-6, xyz max abs <= 1e-6 for the replicated and
+    gauss-sharded steps; those children launched the program's builds (B1 /
+    B2, or B3 / B4 on the ring).  Raises on a program that fails."""
+    a, rows = results[0], {}
+    for key in programs:
+        held = [k for k in results if reports[k].get(key) is not None]
+        same = all(results[k]["losses"][key] == a["losses"][key]
+                   and torch.equal(results[k][key + "_xyz"], a[key + "_xyz"])
+                   for k in held)
+        loss_rel = abs(a["losses"][key] / single[key]["loss"] - 1.0)
+        xyz = float((a[key + "_xyz"].to(dev) - single[key]["xyz"])
+                    .abs().max())
+        rep = lambda field: [reports[k][key].get(field) for k in held]
+        rows[key] = {
+            "loss": a["losses"][key], "loss_rel": loss_rel, "xyz_max": xyz,
+            "processes_bitwise": same, "processes": held,
+            "launches": rep("launches"), "step_ms_median": rep(
+                "step_ms_median"),
+            "exchange_ms_median": rep("exchange_ms_median"),
+            "single_step_ms_median": single[key].get("step_ms_median"),
+            "bytes_a_step": rep("bytes"), "calls_a_step": rep("calls")}
+        ok = same and loss_rel <= 1e-6 and (
+            xyz <= 1e-6 if key in ("p1", "p2", "p7") else np.isfinite(xyz))
+        t0_build = key in ("p3_ring", "p4")
+        for n in rows[key]["launches"]:
+            used = n[2:] if t0_build else n[:2]
+            ok &= dev.type == "cpu" or min(used) > 0
+        if not ok:
+            raise AssertionError(f"19 {key}: {rows[key]}")
+    return rows
+
+
+def render_rows(results, single, keys) -> dict:
+    """Program 5: every child's renders bitwise this process's render over
+    the same mesh; raises otherwise.  Returns the renders' shapes."""
+    out = {}
+    for key in keys:
+        for layout, want in single[key].items():
+            got = [res[key][layout] for res in results.values()]
+            if not (bool(torch.isfinite(want).all()) and all(
+                    torch.equal(x, want) for x in got)):
+                raise AssertionError(f"19 {key} {layout}: the children's "
+                                     "render is not the one-process render")
+            out[f"{key} {layout}"] = list(want.shape)
+    return out
+
+
+def child_kernel_gates(rc, records, kernels: dict, tag: str,
+                       need_t0: bool) -> None:
+    """Each child's recorded heaviest backward launch without t0 (B1 on its
+    inputs, B2 on its cotangent) and with t0 (B3 / B4), held against the
+    plain versions; the worst errors go into `kernels`.  Raises when a
+    child recorded no launch without t0, or none with t0 where `need_t0`
+    (its programs ran the ring)."""
+    for k, rec in records.items():
+        if "bwd" not in rec or (need_t0 and "bwd_t0" not in rec):
+            raise AssertionError(f"19: child {k} recorded {sorted(rec)}")
+        r = rec["bwd"]
+        fargs = (r["stream"], r["tile_start"], r["tile_count"], r["tiles_x"],
+                 r["tile_size"])
+        kw = dict(tile0=r["tile0"])
+        name = f"19 {tag}child{k} band tile0={r['tile0']}"
+        kernels["fwd_err"] = max(kernels["fwd_err"], gate_acc(
+            rc.raster_fwd(*fargs, **kw), rc.raster_fwd_plain(*fargs, **kw),
+            name))
+        bargs = (*fargs, r["acc"], r["gout"])
+        kernels["bwd_err"] = max(kernels["bwd_err"], gate_rows(
+            rc.raster_bwd(*bargs, **kw), rc.raster_bwd_plain(*bargs, **kw),
+            name))
+        if "bwd_t0" in rec:
+            r = rec["bwd_t0"]
+            band = 1 if r["tile0"] else 0
+            seg = (r["stream"], r["tile_start"], r["tile_count"])
+            acc = rc.raster_fwd(*seg, r["tiles_x"], r["tile_size"],
+                                t0=r["t0"], tile0=r["tile0"])
+            e3, e4 = gate_ring_step(
+                rc, {(band, 0): seg}, {(band, 0): r["t0"]}, {(band, 0): acc},
+                {(band, 0): r["gout"]}, r["tiles_x"], r["tile_size"],
+                max(r["tile0"], 1), tag=f"19 {tag}child{k} ")
+            kernels["fwd_t0_err"] = max(kernels["fwd_t0_err"], e3)
+            kernels["bwd_t0_err"] = max(kernels["bwd_t0_err"], e4)
+        kernels["instances"][f"{tag}{k}"] = {
+            key: int(v["stream"].shape[1]) for key, v in rec.items()}
+
+
 def distributed_phase(rc, dev, g, cams, settings, extent: float,
                       size: int = VIEW_SIZE) -> dict:
-    """Phase 19: the mesh over two OS processes on the one card.  Two
-    children run scripts/distributed_step_torch.py (gloo, the CUDA tensors
-    staged through the host) on the state of `g` two single-device steps
-    into training, tile 16: (a) the replicated step over (2, 2), data = the
-    processes, tile = 2 ranks each on the card, with the two cameras
-    `cams`; (b) that state split over (2, 2), saved and restored bitwise
-    (the child raises otherwise), then one gauss-sharded step; (c) the
-    band route, ring v1 and ring v3 over (1, 2), one rank a process, so
-    every ring hop crosses the processes, on `cams[0]`.  Gates: both
-    children exit 0 within DIST_TIMEOUT and agree bit for bit; against
-    this process's single-process steps on the same inputs, loss rel <=
-    1e-6 for every program and xyz max abs <= 1e-6 for (a) and (b); ring
-    v3 has no reshard drops; each child launched B1 / B2 in (a), (b) and
-    the band route, B3 / B4 in the ring steps.  (d) Each child's heaviest
-    backward launch without t0 (B1 on its inputs, B2 on its cotangent)
-    and with t0 (B3 / B4) held against the plain versions (`gate_acc`,
-    `gate_rows`, `gate_ring_step`).  (e) Host ms a step (median of
-    DIST_STEPS after the first) of each child's programs beside this
-    process's, the host ms of it in torch.distributed, and the bytes each
-    step puts through it.
+    """Phase 19: the mesh over several OS processes on the one card, through
+    gloo (the CUDA tensors staged through the host), on the state of `g` two
+    single-device steps into training, tile 16.
+
+    Two children (`run_children`, 2 ranks each): (a) the replicated step
+    over (2, 2), data = the processes, tile = 2 ranks each on the card,
+    with the two cameras `cams`; (b) that state split over (2, 2), saved
+    and restored bitwise (the child raises otherwise), then one
+    gauss-sharded step; (c) the band route, ring v1 and ring v3 over
+    (1, 2), one rank a process, so every ring hop crosses the processes,
+    on `cams[0]`; the renderers (`make_sharded_render`,
+    `make_gauss_sharded_render`) over (2, 2) and over (1, 2) on the band
+    route and through ring v1.  Four children of one rank each over
+    (2, 2), whose rows and columns each cross two of them through a group
+    of their own: (a), (b), both renderers, `verify_shard_grad_parity` in
+    both layouts, and a (1, 2) step that leaves two of them without a rank
+    (they get None).  Gates: every child exits 0 within DIST_TIMEOUT and
+    agrees bit for bit with the others; against this process's
+    single-process programs on the same inputs, loss rel <= 1e-6 for every
+    step and xyz max abs <= 1e-6 for (a) and (b), renders bitwise, the
+    gradient check's deviation within 1e-6 of this process's; ring v3 has
+    no reshard drops; each child launched B1 / B2 in (a), (b) and the band
+    route, B3 / B4 in the ring steps.  (d) Each child's heaviest backward
+    launch without t0 (B1 on its inputs, B2 on its cotangent) and with t0
+    (B3 / B4) held against the plain versions (`gate_acc`, `gate_rows`,
+    `gate_ring_step`).  (e) Host ms a step (median of DIST_STEPS after the
+    first) of each child's programs beside this process's, the host ms of
+    it in torch.distributed, and the bytes each step puts through it.
     Then the NCCL path (`nccl_exchange_check`).  Raises on any check that
     fails."""
     from mini3dgs_tpu_torch.config import TrainingConfig
@@ -1665,46 +1810,16 @@ def distributed_phase(rc, dev, g, cams, settings, extent: float,
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         ds.write_setup(work / "setup.pt", setup)
-        port = free_port()
-        procs = [subprocess.Popen(
-            [sys.executable, str(REPO / "scripts" /
-                                 "distributed_step_torch.py"),
-             "--device", dev.type, "--ranks", "2", "--ring-ranks", "1",
-             "--setup", str(work / "setup.pt"), "--out", str(work / "out"),
-             "--steps", str(DIST_STEPS), "--record",
-             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
-             "--process-id", str(k), "--backend", "gloo", "--timeout", "120"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            cwd=str(REPO)) for k in range(2)]
-        texts = []
-        try:
-            for proc in procs:
-                texts.append(proc.communicate(timeout=DIST_TIMEOUT)[0])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for proc, text in zip(procs, texts):
-            if proc.returncode != 0:
-                raise AssertionError(f"19: a child exited with "
-                                     f"{proc.returncode}:\n{text[-6000:]}")
-        reports = {}
-        for text in texts:
-            r = json.loads(text.strip().splitlines()[-1])
-            reports[r["process"]] = r
-        out = work / "out"
-        results = {k: torch.load(out / f"result.p{k}.pt", weights_only=True)
-                   for k in range(2)}
-        # the children record launches on the card only
-        records = {k: torch.load(out / f"kernels.p{k}.pt", weights_only=True,
-                                 map_location=dev)
-                   for k in range(2) if dev.type == "cuda"}
+        two = run_children(dev, work / "setup.pt", work / "two", 2,
+                           "--ranks", "2", "--ring-ranks", "1")
+        t_two = time.perf_counter() - t_phase
+        four = run_children(dev, work / "setup.pt", work / "four", 4,
+                            "--ranks", "1", "--mesh", "2", "2", "--no-ring",
+                            "--partial", "1", "2")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t_children = time.perf_counter() - t_phase
 
-    programs = ("p1", "p2", "p3_band", "p3_ring", "p4")
     m22, m12 = make_mesh(2, 2, [dev]), make_mesh(1, 2, [dev])
     single = {"p1": ds.replicated_step(setup["mesh"], m22, DIST_STEPS),
               "p2": ds.gauss_sharded_step(setup["mesh"], m22, DIST_STEPS),
@@ -1712,76 +1827,104 @@ def distributed_phase(rc, dev, g, cams, settings, extent: float,
               "p3_ring": ds.replicated_step(setup["ring"], m12, DIST_STEPS,
                                             ring=True),
               "p4": ds.gauss_sharded_step(setup["ring"], m12, DIST_STEPS,
-                                          ring_local=True)}
-    a, b = results[0], results[1]
-    rows = {}
-    for key in programs:
-        same = a["losses"][key] == b["losses"][key] \
-            and torch.equal(a[key + "_xyz"], b[key + "_xyz"])
-        loss_rel = abs(a["losses"][key] / single[key]["loss"] - 1.0)
-        xyz = float((a[key + "_xyz"].to(dev) - single[key]["xyz"])
-                    .abs().max())
-        rows[key] = {
-            "loss": a["losses"][key], "loss_rel": loss_rel, "xyz_max": xyz,
-            "processes_bitwise": same,
-            "launches": [reports[k][key]["launches"] for k in range(2)],
-            "step_ms_median": [reports[k][key]["step_ms_median"]
-                               for k in range(2)],
-            "exchange_ms_median": [reports[k][key]["exchange_ms_median"]
-                                   for k in range(2)],
-            "single_step_ms_median": single[key]["step_ms_median"],
-            "bytes_a_step": [reports[k][key]["bytes"] for k in range(2)],
-            "calls_a_step": [reports[k][key]["calls"] for k in range(2)]}
-        ok = same and loss_rel <= 1e-6 and (
-            xyz <= 1e-6 if key in ("p1", "p2") else np.isfinite(xyz))
-        t0_build = key in ("p3_ring", "p4")
-        for k in range(2):
-            n = reports[k][key]["launches"]
-            used = n[2:] if t0_build else n[:2]
-            ok &= dev.type == "cpu" or min(used) > 0
-        if not ok:
-            raise AssertionError(f"19 {key}: {rows[key]}")
-    if not all(r["p2_checkpoint_bitwise"] and r["p4"]["reshard_drops"] == 0
+                                          ring_local=True),
+              "p5_mesh": ds.renders(setup["mesh"], m22),
+              "p5_ring_mesh_band": ds.renders(setup["ring"], m12),
+              "p5_ring_mesh_ring": ds.renders(setup["ring"], m12, ring=True),
+              "p6": ds.grad_parity(setup["mesh"], m22),
+              "p7": ds.replicated_step(setup["mesh"], m12)}
+    rows = program_rows(dev, two[0], two[1], single,
+                        ("p1", "p2", "p3_band", "p3_ring", "p4"))
+    rows4 = program_rows(dev, four[0], four[1], single, ("p1", "p2", "p7"))
+    renders = {
+        "two": render_rows(two[1], single, ("p5_mesh", "p5_ring_mesh_band",
+                                            "p5_ring_mesh_ring")),
+        "four": render_rows(four[1], single, ("p5_mesh",))}
+    parity = {k: r["p6"] for k, r in four[0].items()}
+    if not (all(abs(v - single["p6"][layout]) <= 1e-6
+                for p in list(parity.values())
+                + [r["p6"] for r in two[0].values()]
+                for layout, v in p.items())
+            and [four[0][k]["p7_ranks"] for k in range(4)]
+            == [[0], [1], [], []]
+            and four[0][2]["p7"] is None and four[0][3]["p7"] is None):
+        raise AssertionError(f"19: grad check {parity} against "
+                             f"{single['p6']}, or the rankless processes: "
+                             f"{four[0]}")
+    reports = {**two[0], **{f"four{k}": r for k, r in four[0].items()}}
+    if not all(r["p2_checkpoint_bitwise"]
                and r["collectives"]["forward_bitwise"]
-               for r in reports.values()):
+               for r in reports.values()) \
+            or not all(r["p4"]["reshard_drops"] == 0 for r in two[0].values()):
         raise AssertionError(f"19: {reports}")
 
     kernels = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_t0_err": 0.0,
                "bwd_t0_err": 0.0, "instances": {}}
-    for k, rec in records.items():
-        if "bwd" not in rec or "bwd_t0" not in rec:
-            raise AssertionError(f"19: child {k} recorded {sorted(rec)}")
-        r = rec["bwd"]
-        fargs = (r["stream"], r["tile_start"], r["tile_count"], r["tiles_x"],
-                 r["tile_size"])
-        kw = dict(tile0=r["tile0"])
-        name = f"19 child{k} band tile0={r['tile0']}"
-        kernels["fwd_err"] = max(kernels["fwd_err"], gate_acc(
-            rc.raster_fwd(*fargs, **kw), rc.raster_fwd_plain(*fargs, **kw),
-            name))
-        bargs = (*fargs, r["acc"], r["gout"])
-        kernels["bwd_err"] = max(kernels["bwd_err"], gate_rows(
-            rc.raster_bwd(*bargs, **kw), rc.raster_bwd_plain(*bargs, **kw),
-            name))
-        r = rec["bwd_t0"]
-        band = 1 if r["tile0"] else 0
-        seg = (r["stream"], r["tile_start"], r["tile_count"])
-        acc = rc.raster_fwd(*seg, r["tiles_x"], r["tile_size"], t0=r["t0"],
-                            tile0=r["tile0"])
-        e3, e4 = gate_ring_step(
-            rc, {(band, 0): seg}, {(band, 0): r["t0"]}, {(band, 0): acc},
-            {(band, 0): r["gout"]}, r["tiles_x"], r["tile_size"],
-            max(r["tile0"], 1), tag=f"19 child{k} ")
-        kernels["fwd_t0_err"] = max(kernels["fwd_t0_err"], e3)
-        kernels["bwd_t0_err"] = max(kernels["bwd_t0_err"], e4)
-        kernels["instances"][k] = {key: int(v["stream"].shape[1])
-                                   for key, v in rec.items()}
+    child_kernel_gates(rc, two[2], kernels, "", need_t0=True)
+    child_kernel_gates(rc, four[2], kernels, "four ", need_t0=False)
     nccl = nccl_exchange_check() if dev.type == "cuda" else None
-    return {"programs": rows, "kernels": kernels, "nccl": nccl,
+    return {"programs": rows, "programs_four": rows4, "renders": renders,
+            "grad_parity": {"single": single["p6"], "four": parity},
+            "kernels": kernels, "nccl": nccl,
             "collectives": {k: r["collectives"] for k, r in reports.items()},
             "child_seconds": [r["seconds"] for r in reports.values()],
-            "children_s": t_children,
+            "two_s": t_two, "children_s": t_children,
             "seconds": time.perf_counter() - t_phase}
+
+
+def graft_entry_phase(rc, dev) -> dict:
+    """Phase 20: graft_entry_torch.py on the card.  `entry()` renders the
+    flagship scene at 256x256 through B1 (one launch, a finite image);
+    `dryrun_multichip(8)` takes its six steps on eight ranks of the card
+    (its own checks between the losses hold) and each loss lies within
+    1e-5 (relative, the bound of tests/test_torch_graft_entry.py) of the
+    JAX dryrun's loss on the same scene,
+    docs/artifacts/dryrun_multichip_jax.json.  Each of those is the loss
+    before its step's update on the same state, so the record checks the
+    forward loss of every route, not the updates.  Raises on any check
+    that fails."""
+    import graft_entry_torch as ge
+
+    t0 = time.perf_counter()
+    before = rc.raster_fwd.launches
+    fn, args = ge.entry()
+    image = fn(*args)
+    torch.cuda.synchronize()
+    entry = {"shape": list(image.shape), "mean": float(image.mean()),
+             "launches": rc.raster_fwd.launches - before,
+             "seconds": time.perf_counter() - t0}
+    if entry["shape"] != [3, 256, 256] or not bool(
+            torch.isfinite(image).all()) or entry["launches"] != 1:
+        raise AssertionError(f"20: entry() {entry}")
+    t1 = time.perf_counter()
+    before = (rc.raster_fwd.launches, rc.raster_bwd.launches,
+              rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        losses = ge.dryrun_multichip(8)
+    record = json.loads((REPO / "docs" / "artifacts" /
+                         "dryrun_multichip_jax.json").read_text())
+    rel = {k: abs(v / record["losses"][k] - 1.0) for k, v in losses.items()}
+    dryrun = {"losses": losses, "rel_to_jax": rel,
+              "printed": printed.getvalue().strip(),
+              "launches": [a - b for a, b in zip(
+                  (rc.raster_fwd.launches, rc.raster_bwd.launches,
+                   rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0),
+                  before)],
+              "seconds": time.perf_counter() - t1}
+    if list(losses) != list(record["losses"]) or not all(
+            r <= 1e-5 for r in rel.values()) \
+            or min(dryrun["launches"]) == 0:
+        raise AssertionError(f"20: dryrun_multichip(8) {dryrun}")
+    return {"entry": entry, "dryrun": dryrun}
+
+
+def heavy_band(tile_count: torch.Tensor, tiles_x: int) -> tuple:
+    """(first tile row, rows) of the BAND_ROWS tile rows around the
+    heaviest tile of a tile-major image: phase 17's band."""
+    rows = tile_count.shape[0] // tiles_x
+    n_rows = min(BAND_ROWS, rows)
+    heavy_row = int(torch.argmax(tile_count)) // tiles_x
+    return min(max(heavy_row - n_rows // 2, 0), rows - n_rows), n_rows
 
 
 def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
@@ -1856,10 +1999,7 @@ def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
     # the gate of phase 3 allows (scripts/raster_precision_torch.py); on
     # rows well inside it the two distances are two float32 roundings of
     # like size, and their ratio is noise.
-    n_rows = min(BAND_ROWS, b.tile_start.shape[0] // tiles_x)
-    heavy_row = int(torch.argmax(b.tile_count)) // tiles_x
-    row0 = min(max(heavy_row - n_rows // 2, 0),
-               b.tile_start.shape[0] // tiles_x - n_rows)
+    row0, n_rows = heavy_band(b.tile_count, tiles_x)
     lo, hi = row0 * tiles_x, (row0 + n_rows) * tiles_x
     band = dict(tile0=lo)
     bf = (stream, b.tile_start[lo:hi], b.tile_count[lo:hi], tiles_x, 32)
@@ -1873,9 +2013,12 @@ def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
     rel = lambda a: ((a.double() - d_64).norm(dim=1)
                      / d_64.norm(dim=1).clamp(min=1e-30))
     rel_k, rel_32 = rel(d_k), rel(d_32)
+    ratio = rel_k / rel_32.clamp(min=1e-30)
     print(f"    1M band of {n_rows} tile rows from row {row0}: B2 rel-L2 "
           f"from float64 by row {' '.join(f'{x:.2e}' for x in rel_k)}; the "
-          f"float32 plain version's {' '.join(f'{x:.2e}' for x in rel_32)}")
+          f"float32 plain version's {' '.join(f'{x:.2e}' for x in rel_32)}; "
+          f"the kernel's over the plain version's by row "
+          f"{' '.join(f'{x:.3f}' for x in ratio)}")
     bound = torch.clamp(PRECISION_SLACK * rel_32 + 1e-6, min=ROWS_REL_L2)
     if not bool(torch.isfinite(d_k).all()) or bool((rel_k > bound).any()):
         raise AssertionError("1M band: the backward kernel lies farther from "
@@ -1917,6 +2060,7 @@ def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
     return {"one": one, "launches_1m": launches_1m, "n_live_view0": b.n_live,
             "heaviest_over_mean": heavy / mean, "fwd_err": fwd_err,
             "rel_k": rel_k.tolist(), "rel_32": rel_32.tolist(),
+            "ratio": ratio.tolist(),
             "kernel_ms": ms, "plain_s": plain_s,
             "generate_s": gen_s, "probe": probe,
             "launches_probe": launches_probe}
@@ -2923,19 +3067,29 @@ def main() -> int:
                "p3_band": "19c band route over (1, 2)",
                "p3_ring": "19c ring v1 over (1, 2)",
                "p4": "19c ring v3, state split, over (1, 2)"}
-    for key, row in p19["programs"].items():
-        print(f"[{names19[key]}, two processes] {VIEW_SIZE}^2 tile "
-              f"{MESH_TILE_SIZE}, {N_GAUSSIANS} Gaussians: loss "
-              f"{row['loss']:.6f}, against one process rel "
-              f"{row['loss_rel']:.2e}, xyz max {row['xyz_max']:.2e}, the two "
-              f"processes bitwise {row['processes_bitwise']}; launches (fwd, "
-              f"bwd, fwd t0, bwd t0) {row['launches']}; host ms a step median "
-              f"{row['step_ms_median'][0]:.2f} / {row['step_ms_median'][1]:.2f}"
-              f" (one process {row['single_step_ms_median']:.2f}), of it "
-              f"in torch.distributed {row['exchange_ms_median'][0]:.2f} / "
-              f"{row['exchange_ms_median'][1]:.2f}; bytes a "
-              f"step through torch.distributed {row['bytes_a_step']} in "
-              f"{row['calls_a_step']} calls | {smi}", flush=True)
+    names19["p7"] = "19f replicated step over (1, 2), two rankless"
+    ms = lambda v: " / ".join("-" if x is None else f"{x:.2f}" for x in v)
+    for group, rows in (("two processes", p19["programs"]),
+                        ("four processes of one rank",
+                         p19["programs_four"])):
+        for key, row in rows.items():
+            one = row["single_step_ms_median"]
+            print(f"[{names19[key]}, {group}] {VIEW_SIZE}^2 tile "
+                  f"{MESH_TILE_SIZE}, {N_GAUSSIANS} Gaussians: loss "
+                  f"{row['loss']:.6f}, against one process rel "
+                  f"{row['loss_rel']:.2e}, xyz max {row['xyz_max']:.2e}, "
+                  f"processes {row['processes']} bitwise "
+                  f"{row['processes_bitwise']}; launches (fwd, bwd, fwd t0, "
+                  f"bwd t0) {row['launches']}; host ms a step median "
+                  f"{ms(row['step_ms_median'])} (one process "
+                  f"{'-' if one is None else f'{one:.2f}'}), of it in "
+                  f"torch.distributed {ms(row['exchange_ms_median'])}; bytes "
+                  f"a step through torch.distributed {row['bytes_a_step']} in "
+                  f"{row['calls_a_step']} calls | {smi}", flush=True)
+    print(f"[19e renders over processes] bitwise the one-process render: "
+          f"{json.dumps(p19['renders'])}; verify_shard_grad_parity worst "
+          f"deviation, one process {json.dumps(p19['grad_parity']['single'])}"
+          f", the four {json.dumps(p19['grad_parity']['four'])}", flush=True)
     k19 = p19["kernels"]
     print(f"[19d the children's launches against the plain versions] "
           f"instances {json.dumps(k19['instances'])}: B1 max "
@@ -2945,14 +3099,29 @@ def main() -> int:
           f"{json.dumps(p19['collectives'])}; NCCL, one process on the card: "
           f"{json.dumps(p19['nccl'])}", flush=True)
     print(f"[19] phase 19 took {p19['seconds']:.1f} s (the children "
-          f"{p19['children_s']:.1f} s, their programs "
-          f"{' / '.join(f'{t:.1f}' for t in p19['child_seconds'])} s) | "
-          f"{smi}", flush=True)
-    dist19 = lambda i, keys: sum(row["launches"][k][i] for key, row in
-                                 p19["programs"].items() if key in keys
-                                 for k in range(2))
-    band19, ring19 = ("p1", "p2", "p3_band"), ("p3_ring", "p4")
-    print(f"chip_smoke: phases 1-19 passed in "
+          f"{p19['children_s']:.1f} s, the two {p19['two_s']:.1f} s; their "
+          f"programs {' / '.join(f'{t:.1f}' for t in p19['child_seconds'])}"
+          f" s) | {smi}", flush=True)
+    dist19 = lambda i, keys: sum(
+        n[i] for rows in (p19["programs"], p19["programs_four"])
+        for key, row in rows.items() if key in keys
+        for n in row["launches"])
+    band19, ring19 = ("p1", "p2", "p3_band", "p7"), ("p3_ring", "p4")
+
+    # ---- 20. the twin of __graft_entry__.py ----------------------------
+    p20 = graft_entry_phase(rc, dev)
+    d20 = p20["dryrun"]
+    print(f"[20 graft_entry_torch.py] entry(): {p20['entry']['shape']} mean "
+          f"{p20['entry']['mean']:.6f}, {p20['entry']['launches']} B1 launch, "
+          f"{p20['entry']['seconds']:.2f} s; dryrun_multichip(8) on eight "
+          f"ranks of the card, {d20['seconds']:.2f} s: "
+          f"{d20['printed']}; losses "
+          f"{json.dumps({k: round(v, 9) for k, v in d20['losses'].items()})}"
+          f", rel to the JAX record "
+          f"{' '.join(f'{v:.2e}' for v in d20['rel_to_jax'].values())}; "
+          f"launches (fwd, bwd, fwd t0, bwd t0) {d20['launches']} | {smi}",
+          flush=True)
+    print(f"chip_smoke: phases 1-20 passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- result -------------------------------------------------------
@@ -2968,6 +3137,8 @@ def main() -> int:
          "launches_1m": e17["launches_1m"][0],
          "launches_band_sharded_sort": p18["sort"]["launches"][0],
          "launches_distributed": dist19(0, band19),
+         "launches_graft_entry": p20["entry"]["launches"]
+         + d20["launches"][0],
          "max_abs_err": max(fwd_err, fwd_patch_err, e17["fwd_err"],
                             mesh_runs[0]["kernels"]["fwd_err"],
                             p18["fwd_err"], k19["fwd_err"]),
@@ -2984,6 +3155,7 @@ def main() -> int:
          "launches_1m": e17["launches_1m"][1],
          "launches_band_sharded_sort": p18["sort"]["launches"][1],
          "launches_distributed": dist19(1, band19),
+         "launches_graft_entry": d20["launches"][1],
          "max_abs_err": max(bwd_err, patch_err,
                             mesh_runs[0]["kernels"]["bwd_err"],
                             p18["bwd_err"], k19["bwd_err"]),
@@ -3002,6 +3174,7 @@ def main() -> int:
          **{f"launches_ring_{r}": p18["routes"][r]["launches"][2]
             for r in ("v2", "v3")},
          "launches_distributed": dist19(2, ring19),
+         "launches_graft_entry": d20["launches"][2],
          "max_abs_err": max(t0_err, t3["err"],
                             mesh_runs[1]["kernels"]["fwd_t0_err"],
                             p18["fwd_t0_err"], k19["fwd_t0_err"]),
@@ -3017,6 +3190,7 @@ def main() -> int:
          **{f"launches_ring_{r}": p18["routes"][r]["launches"][3]
             for r in ("v2", "v3")},
          "launches_distributed": dist19(3, ring19),
+         "launches_graft_entry": d20["launches"][3],
          "max_abs_err": max(dt0_err, patch_t0_err, t4["err"],
                             mesh_runs[1]["kernels"]["bwd_t0_err"],
                             p18["bwd_t0_err"], k19["bwd_t0_err"]),
@@ -3046,13 +3220,21 @@ def main() -> int:
             "steady_ms_per_it", "window_ms_per_it", "peak_gib", "n_alive",
             "n_live", "psnr")},
         "one_million_b2_rel_l2_from_float64": {
-            "kernel": e17["rel_k"], "plain_float32": e17["rel_32"]},
+            "kernel": e17["rel_k"], "plain_float32": e17["rel_32"],
+            "kernel_over_plain": e17["ratio"]},
         "probe_psnr": e17["probe"]["psnr"],
         "distributed": {
             key: {k: row[k] for k in (
                 "loss_rel", "xyz_max", "step_ms_median", "exchange_ms_median",
                 "single_step_ms_median", "bytes_a_step")}
-            for key, row in p19["programs"].items()}}))
+            for key, row in p19["programs"].items()},
+        "distributed_four": {
+            key: {k: row[k] for k in (
+                "loss_rel", "xyz_max", "step_ms_median", "exchange_ms_median",
+                "single_step_ms_median", "bytes_a_step")}
+            for key, row in p19["programs_four"].items()},
+        "graft_entry": {"entry_mean": p20["entry"]["mean"],
+                        "dryrun_rel_to_jax": d20["rel_to_jax"]}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

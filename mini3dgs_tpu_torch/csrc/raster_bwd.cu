@@ -57,10 +57,10 @@
 // - Unit of work: a block of 256 threads covers a sub-tile 16 pixels wide
 //   and 16 kPix high, kPix pixels a thread.  At tile 16 that is the tile
 //   (kPix = 1).  At tile 32 a launch of more tiles than the card has SMs
-//   takes kPix = 2 (two blocks a tile, 77-79 registers, three blocks an SM):
+//   takes kPix = 2 (two blocks a tile, 80 registers, three blocks an SM):
 //   one fetch of the instance, one reduction and one store then serve 64
 //   pixels.  A launch of fewer tiles (a band of a ring step) takes kPix = 1
-//   (four blocks a tile, 55-58 registers, four blocks an SM): all its blocks
+//   (four blocks a tile, 60-64 registers, four blocks an SM): all its blocks
 //   are resident at once anyway, and the smaller ones spread better over the
 //   SMs.  The blocks of a tile walk the same slice of the stream and each
 //   leave at their own early stop.
@@ -112,6 +112,19 @@
 // its running product in stream order, so that the w >= 1e-5 and early-stop
 // gates fall where the forward put them.
 //
+// Precision on long lists.  T, the running sum `prefix` and `total` are
+// float64 (T is in raster_fwd.cu too, so both kernels close a pixel's gate
+// at the same instance and weigh it alike), the rest of a pair float32.
+// S = total - prefix subtracts two sums of tens of thousands of terms of
+// either sign whose difference, for an instance deep in the list, is
+// small.  With a float32 T, whose rounding drifts along the list and
+// reaches the forward's sums, the gradient lay 5e-4 to 3e-3 (rel-L2 a row)
+// from float64 on the 1M stream's tiles of 46K instances, as far as the
+// float32 plain version lies; scripts/raster_precision_torch.py --band
+// splits that distance by where float32 enters.  Float64 costs a multiply
+// and a fused multiply-add more a pair on the half-rate float64 units; the
+// outputs, masks, zeros and reproducibility are as before.
+//
 // Tried and dropped (timed on the card, see PERF.md): independent warps of
 // 16 x 8 pixels with four pixels a thread and no block barrier (128
 // registers, 16 warps an SM: slower than this by a fifth); a vote after
@@ -123,8 +136,9 @@
 // are hit, and the kernel executes about 200 instructions a hit where the
 // function needs about 85 operations a pair; lanes of a touched warp that
 // are closed or fail the test idle through the arithmetic; S is a
-// difference of nearly equal sums (the original 3DGS backward walks back to
-// front instead); a launch of few tiles lasts as long as its busiest SM.
+// difference of nearly equal sums, kept in float64 (the original 3DGS
+// backward walks back to front instead); a launch of few tiles lasts as
+// long as its busiest SM.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -215,7 +229,8 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
   const int iy = sub_y + (warp / kPatchesX) * kPatchH + (lane >> 3);
   const float px = static_cast<float>(tile_x + ix);
 
-  float py[kPix], T[kPix], prefix[kPix], total[kPix];
+  float py[kPix];
+  double T[kPix], prefix[kPix], total[kPix];  // float64: see the header
   float g_r[kPix], g_g[kPix], g_b[kPix], g_d[kPix], g_a[kPix];
   bool open[kPix];
   const float* go = gout + static_cast<int64_t>(t) * kAcc * P;
@@ -224,25 +239,28 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
   for (int k = 0; k < kPix; ++k) {
     const int i = (iy + kLaneRows * k) * kTile + ix;
     py[k] = static_cast<float>(tile_y + iy + kLaneRows * k);
-    prefix[k] = 0.0f;
+    prefix[k] = 0.0;
     g_r[k] = go[0 * P + i];
     g_g[k] = go[1 * P + i];
     g_b[k] = go[2 * P + i];
     g_d[k] = go[3 * P + i];
     g_a[k] = go[4 * P + i];
-    total[k] = g_r[k] * oo[0 * P + i] + g_g[k] * oo[1 * P + i] +
-               g_b[k] * oo[2 * P + i] + g_d[k] * oo[3 * P + i] +
-               g_a[k] * oo[4 * P + i];
-    T[k] = 1.0f;
+    total[k] = static_cast<double>(g_r[k]) * oo[0 * P + i] +
+               static_cast<double>(g_g[k]) * oo[1 * P + i] +
+               static_cast<double>(g_b[k]) * oo[2 * P + i] +
+               static_cast<double>(g_d[k]) * oo[3 * P + i] +
+               static_cast<double>(g_a[k]) * oo[4 * P + i];
+    T[k] = 1.0;
     if constexpr (kHasT0) {
       const float t_in = t0[static_cast<int64_t>(t) * P + i];
-      total[k] += go[5 * P + i] * oo[5 * P + i];
-      dt0[static_cast<int64_t>(t) * P + i] = total[k] / fmaxf(t_in, 1e-30f);
+      total[k] += static_cast<double>(go[5 * P + i]) * oo[5 * P + i];
+      dt0[static_cast<int64_t>(t) * P + i] =
+          static_cast<float>(total[k]) / fmaxf(t_in, 1e-30f);
       T[k] = t_in;
     }
     // The gate reads the transmittance before an instance; T never rises,
     // so once the gate has closed it stays closed.
-    open[k] = 1.0f - T[k] < kEarlyStopA;
+    open[k] = 1.0 - T[k] < kEarlyStopA;
   }
   if (count == 0) return;  // the same for all blocks of the tile
   auto any_open = [&]() {
@@ -339,10 +357,11 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
           if (!(open[k] && w >= kWEps)) continue;  // alpha = 0: nothing moves
           const float a_raw = op * w;
           const float alpha = fminf(a_raw, 1.0f);
-          const float wgt = T[k] * alpha;
+          const double wgt64 = T[k] * alpha;
+          const float wgt = static_cast<float>(wgt64);
           const float u =
               g_r[k] * cr + g_g[k] * cg + g_b[k] * cb + g_d[k] * cd + g_a[k];
-          prefix[k] += u * wgt;
+          prefix[k] = fma(static_cast<double>(u), wgt64, prefix[k]);
           touched = true;
           d[6] += g_r[k] * wgt;
           d[7] += g_g[k] * wgt;
@@ -350,7 +369,8 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
           d[9] += g_d[k] * wgt;
           if (a_raw < 1.0f && a_raw > 0.0f) {
             const float d_alpha =
-                u * T[k] - (total[k] - prefix[k]) / (1.0f - alpha);
+                u * static_cast<float>(T[k]) -
+                static_cast<float>(total[k] - prefix[k]) / (1.0f - alpha);
             d[5] += d_alpha * w;
             if (w < 1.0f) {
               const float d_lw = w * d_alpha * op;
@@ -361,8 +381,8 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
               d[4] += d_lw * dy * dy;
             }
           }
-          T[k] *= 1.0f - alpha;
-          open[k] = 1.0f - T[k] < kEarlyStopA;
+          T[k] *= 1.0 - alpha;
+          open[k] = 1.0 - T[k] < kEarlyStopA;
         }
         if (__any_sync(kFullMask, touched)) {
           const float v = reduce_rows(d, lane);

@@ -75,6 +75,15 @@
 // differently, so the early stop can flip on isolated pixels, each by at
 // most the remaining transmittance (<= 5e-3).  No fast-math: __expf would
 // move the w >= 1e-5 and early-stop gates.
+//
+// T is a float64 running product (one multiply a pair on the half-rate
+// float64 units); the rest of a pair, and the accumulators, are float32.
+// Over tiles of tens of thousands of instances a float32 T drifts from the
+// product of its factors, and raster_bwd.cu, which replays T to form
+// S = total - prefix, amplifies that drift of the accumulators into its
+// gradient (scripts/raster_precision_torch.py --band splits it).
+// raster_bwd.cu computes the same float64 T, so both kernels close each
+// pixel's gate at the same instance.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -84,9 +93,10 @@
 
 namespace {
 
-// The blocks an SM the launch bound asks for: 48 registers, so five fit.
-// Six (40 registers) spill and were slower.
-constexpr int kFwdBlocksPerSm = 4;
+// The blocks an SM the launch bound asks for: five, in 43-48 registers
+// (without the bound the float64 T took 51 at tile 32, four blocks an SM,
+// 2-3 % slower).  Six (40 registers) spill and were slower.
+constexpr int kFwdBlocksPerSm = 5;
 
 // kTile = 16: a block a tile.  kTile = 32: kQuads = 4 blocks a tile.
 template <int kTile, bool kHasT0>
@@ -120,10 +130,10 @@ raster_fwd_kernel(const float* __restrict__ inst, int64_t n_live,
   const float x0 = static_cast<float>(tile_x + patch_x);
   const float y0 = static_cast<float>(tile_y + patch_y);
 
-  float T = kHasT0 ? t0[static_cast<int64_t>(t) * P + i] : 1.0f;
+  double T = kHasT0 ? t0[static_cast<int64_t>(t) * P + i] : 1.0;  // float64
   // The gate reads the transmittance before an instance; T never rises, so
   // once the gate has closed it stays closed.
-  bool open = 1.0f - T < kEarlyStopA;
+  bool open = 1.0 - T < kEarlyStopA;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   float acc_a = 0.0f;
 
@@ -175,14 +185,14 @@ raster_fwd_kernel(const float* __restrict__ inst, int64_t n_live,
           const float w = fminf(expf(lw), 1.0f);
           if (!(open && w >= kWEps)) continue;  // alpha = 0: nothing moves
           const float alpha = fminf(s1.y * w, 1.0f);
-          const float c = T * alpha;
+          const float c = static_cast<float>(T * alpha);
           acc_r += c * s1.z;
           acc_g += c * s1.w;
           acc_b += c * s2.x;
           acc_d += c * s2.y;
           acc_a += c;
-          T *= 1.0f - alpha;
-          open = 1.0f - T < kEarlyStopA;
+          T *= 1.0 - alpha;
+          open = 1.0 - T < kEarlyStopA;
         }
       }
     }
@@ -194,7 +204,7 @@ raster_fwd_kernel(const float* __restrict__ inst, int64_t n_live,
   o[2 * P] = acc_b;
   o[3 * P] = acc_d;
   o[4 * P] = acc_a;
-  o[5 * P] = kHasT0 ? T : 0.0f;
+  o[5 * P] = kHasT0 ? static_cast<float>(T) : 0.0f;
 #pragma unroll
   for (int c = 6; c < kAcc; ++c) o[c * P] = 0.0f;
 }

@@ -9,8 +9,17 @@ first, each process's in the order of its `local_devices`.  By default
 tile axis (the band exchanges and the gradient sums of every step) stays
 inside a process and the data axis (one mean of the loss and one sum of the
 replicated gradients a step) crosses the processes, as the JAX package lays
-its axes over hosts.  A rank of another process stands in the mesh as a
-`mesh.Remote`; parallel/mesh.py says how the collectives cross.
+its axes over hosts.  Any other (data, tile) takes the first data x tile
+ranks in that order, as JAX's `make_global_mesh` takes the first devices:
+an axis may then span some processes and not others, and a process may
+hold no rank at all.  A rank of another process stands in the mesh as a
+`mesh.Remote`; each axis that crosses processes exchanges through a group
+of exactly its processes (`mesh.form_groups`), and parallel/mesh.py says
+how the collectives cross.
+
+A process that holds no rank of the mesh takes part in none of its
+exchanges.  The JAX package's step runs there and returns arrays with no
+value on that process; the port's steps and renderers return None there.
 
 Nothing here is needed in one process: `make_mesh` stays the default.
 """
@@ -24,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, Remote, gather_processes
+from .mesh import Mesh, Remote, form_groups, gather_processes
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -81,9 +90,9 @@ def make_global_mesh(data: Optional[int] = None, tile: Optional[int] = None,
     without a card, name CPU devices).  `tile` defaults to one process's
     rank count and `data` to as many rows as the ranks fill; the mesh
     takes the first data * tile ranks.  Raises when data * tile exceeds
-    the ranks, or when the mesh leaves a process without a rank or lays
-    an axis over some processes but not all (every process takes part in
-    each cross-process exchange)."""
+    the ranks.  Every process of the group must call it with the same
+    arguments at the same point: it forms the groups of the axes that
+    cross processes (`mesh.form_groups`)."""
     if local_devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -102,16 +111,9 @@ def make_global_mesh(data: Optional[int] = None, tile: Optional[int] = None,
         raise ValueError(f"make_global_mesh: a ({data}, {tile}) mesh over "
                          f"{total} ranks of {len(counts)} processes")
     owner = owner[:data * tile]
-    every = set(range(len(counts)))
-    axes = [owner[d * tile:(d + 1) * tile] for d in range(data)] \
-        + [owner[t::tile] for t in range(tile)]
-    if set(owner) != every or any(len(set(a)) > 1 and set(a) != every
-                                  for a in axes):
-        raise ValueError(
-            f"make_global_mesh: the ({data}, {tile}) mesh lays its ranks "
-            f"over processes {owner}; every process must hold a rank, and "
-            "an axis lie in one process or cross all of them")
-    first = owner.index(me)
-    return Mesh(data, tile, tuple(
+    first = owner.index(me) if me in owner else 0
+    mesh = Mesh(data, tile, tuple(
         local_devices[k - first] if p == me else Remote(p)
         for k, p in enumerate(owner)))
+    form_groups(mesh)
+    return mesh

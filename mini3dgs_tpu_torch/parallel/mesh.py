@@ -31,17 +31,27 @@ over `dist.all_to_all_single` with split sizes: the int64 header lengths,
 the headers, then the payload as bytes; its backward sends the gradient of
 what a rank received back to its sender the same way), and `.to` moves
 the rest.  With the gloo backend the payload is staged through host
-buffers.  Every process issues the cross-process exchanges in the same
-order, forward and backward, and calls each one even when it moves
-nothing.  Two rules keep the gradients right:
+buffers.  An exchange runs on the group of the processes that hold the
+ranks of its axis (`form_groups`: one `torch.distributed` group for each
+set of processes that a row or a column of the mesh, or the whole mesh,
+spans short of every process; the whole group where it spans them all),
+so an axis may lie over some processes and not others.  Every process of
+that group issues the axis's exchanges in the same order, forward and
+backward, and calls each one even when it moves nothing.  Two groups that
+share a process cannot wait on each other: every process runs the same
+program, so each issues its data-axis exchanges (the gauss-sharded step's
+gathers) before its tile-axis ones, and autograd takes them back in the
+reverse order, which the data gathers' outputs feeding the tile exchanges
+force.  Two rules keep the gradients right:
 
   * A reduction (`psum`, `pmean`) across processes sends its gradient to
     the inputs of the process that differentiates it only: every process
     takes the backward of its own copy of the sum, so each term gets its
     gradient exactly once (the sum is linear in its terms).
-  * A value that every process holds (a replicated parameter) gets its
-    gradient from each process's part of the graph; `all_reduce_sum` adds
-    them once, after the backward.  A step that differentiates across
+  * A value that every process of the mesh holds (a replicated
+    parameter) gets its gradient from each process's part of the graph;
+    `all_reduce_sum` over the mesh's processes adds them once, after the
+    backward.  A step that differentiates across
     processes passes `ANCHOR` among the tensors it asks gradients for (see
     `_Exchange`).
 """
@@ -99,6 +109,10 @@ class Mesh:
 
     def local_ranks(self) -> List[int]:
         return local_ranks(self.devices)
+
+    def processes(self) -> Tuple[int, ...]:
+        """The processes that hold ranks of the mesh."""
+        return processes_of(self.devices)
 
 
 def make_mesh(data: int = 1, tile: int = 1,
@@ -206,6 +220,60 @@ def _nbytes(dtype, shape) -> int:
     return n
 
 
+# The groups `form_groups` made, by their processes (sorted).  Every process
+# forms the same ones in the same order, so a set of processes names one
+# group on each of them.
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def _process_of(device) -> int:
+    return dist.get_rank() if is_local(device) else device.process
+
+
+def processes_of(devices: Sequence) -> Tuple[int, ...]:
+    """The processes (sorted) that hold the ranks `devices`."""
+    if not spans_processes(devices):
+        return (dist.get_rank() if dist.is_initialized() else 0,)
+    return tuple(sorted({_process_of(d) for d in devices}))
+
+
+def _group(procs: Tuple[int, ...]):
+    """The group of the processes `procs`: the default group when they are
+    all the processes there are."""
+    if procs == tuple(range(dist.get_world_size())):
+        return None
+    if procs not in _GROUPS:
+        raise RuntimeError(
+            f"no group of processes {list(procs)}: a mesh whose axes cross "
+            "some processes but not all comes from "
+            "distributed.make_global_mesh, which forms its groups")
+    return _GROUPS[procs]
+
+
+def form_groups(mesh: "Mesh") -> dict:
+    """One `dist.new_group` for each set of processes that a row or a
+    column of `mesh`, or the whole mesh, spans, when that is more than one
+    process and fewer than all; {processes: group}.  Every process of the
+    default group must call it with the same mesh at the same point of its
+    program (each group is formed by all of them, in one order, also by
+    those outside it); a set met before reuses its group."""
+    if not dist.is_initialized():
+        return {}
+    world = tuple(range(dist.get_world_size()))
+    axes = [mesh.tile_devices(d) for d in range(mesh.data)] \
+        + [mesh.data_devices(t) for t in range(mesh.tile)] \
+        + [list(mesh.devices)]
+    sets = []
+    for devices in axes:
+        procs = processes_of(devices)
+        if 1 < len(procs) < len(world) and procs not in sets:
+            sets.append(procs)
+    for procs in sets:
+        if procs not in _GROUPS:
+            _GROUPS[procs] = dist.new_group(list(procs))
+    return {procs: _GROUPS[procs] for procs in sets}
+
+
 def _buffer_device() -> torch.device:
     """Where the exchange's buffers live: the host for gloo, the current
     card for NCCL."""
@@ -214,40 +282,45 @@ def _buffer_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _exchange(messages: Sequence[tuple], flag: int = 0):
-    """One exchange between all processes of the group.  `messages` are
-    (process, src, dst, spec, leaves): `spec` a structure from `_encode`
-    and `leaves` its tensors, for `process` (this one's own included).
-    Three `all_to_all_single` calls: the int64 header lengths, the headers
-    (`flag`, the message count, then src, dst and the spec of each
-    message), the leaves' bytes.  Returns (messages received as (process,
-    src, dst, spec, leaves) in the order of the senders and of their
-    lists, leaves on the buffer device; every process's `flag`)."""
+def _exchange(messages: Sequence[tuple], flag: int = 0,
+              procs: Optional[Tuple[int, ...]] = None):
+    """One exchange between the processes `procs` (default: all), on their
+    group.  `messages` are (process, src, dst, spec, leaves): `spec` a
+    structure from `_encode` and `leaves` its tensors, for `process` (this
+    one's own included).  Three `all_to_all_single` calls: the int64
+    header lengths, the headers (`flag`, the message count, then src, dst
+    and the spec of each message), the leaves' bytes.  Returns (messages
+    received as (process, src, dst, spec, leaves) in the order of the
+    senders and of their lists, leaves on the buffer device; every
+    process's `flag`)."""
     t_start = time.perf_counter()
-    world = dist.get_world_size()
+    procs = tuple(range(dist.get_world_size())) if procs is None else procs
+    group = _group(procs)
+    slot = {p: i for i, p in enumerate(procs)}
+    n = len(procs)
     buf = _buffer_device()
-    heads = [[flag, 0] for _ in range(world)]
-    blobs = [[] for _ in range(world)]
+    heads = [[flag, 0] for _ in range(n)]
+    blobs = [[] for _ in range(n)]
     for proc, src, dst, spec, leaves in messages:
-        heads[proc][1] += 1
-        heads[proc] += [src, dst, len(spec), *spec]
-        blobs[proc] += leaves
+        heads[slot[proc]][1] += 1
+        heads[slot[proc]] += [src, dst, len(spec), *spec]
+        blobs[slot[proc]] += leaves
     n_out = [len(h) for h in heads]
-    n_in = torch.empty(world, dtype=torch.int64, device=buf)
+    n_in = torch.empty(n, dtype=torch.int64, device=buf)
     dist.all_to_all_single(n_in, torch.tensor(n_out, dtype=torch.int64,
-                                              device=buf))
+                                              device=buf), group=group)
     n_in = n_in.tolist()
     got = torch.empty(sum(n_in), dtype=torch.int64, device=buf)
     dist.all_to_all_single(
         got, torch.tensor([v for h in heads for v in h], dtype=torch.int64,
-                          device=buf), n_in, n_out)
+                          device=buf), n_in, n_out, group=group)
     got = got.tolist()
 
     # What arrives from each process: its messages' specs and their bytes.
     flags, records, b_in, pos = [], [], [], 0
-    for proc in range(world):
-        head = got[pos:pos + n_in[proc]]
-        pos += n_in[proc]
+    for k, proc in enumerate(procs):
+        head = got[pos:pos + n_in[k]]
+        pos += n_in[k]
         flags.append(head[0])
         at, size = 2, 0
         for _ in range(head[1]):
@@ -266,10 +339,10 @@ def _exchange(messages: Sequence[tuple], flag: int = 0):
     payload = torch.cat(flat) if flat else torch.empty(0, dtype=torch.uint8,
                                                        device=buf)
     recv = torch.empty(sum(b_in), dtype=torch.uint8, device=buf)
-    dist.all_to_all_single(recv, payload, b_in, b_out)
-    me = dist.get_rank()
+    dist.all_to_all_single(recv, payload, b_in, b_out, group=group)
+    me = slot[dist.get_rank()]
     TRAFFIC["calls"] += 3
-    TRAFFIC["bytes"] += 8 * (world - 1 + sum(n_out) - n_out[me]) \
+    TRAFFIC["bytes"] += 8 * (n - 1 + sum(n_out) - n_out[me]) \
         + sum(b_out) - b_out[me]
 
     out, off = [], 0
@@ -305,7 +378,8 @@ class _Exchange(torch.autograd.Function):
         for proc, src, dst, spec, n in plan["send"]:
             messages.append((proc, src, dst, spec, list(leaves[at:at + n])))
             at += n
-        got, flags = _exchange(messages, int(any(ctx.needs_input_grad[2:])))
+        got, flags = _exchange(messages, int(any(ctx.needs_input_grad[2:])),
+                               plan["procs"])
         devices = plan["devices"]
         outs, received = [], []
         for proc, src, dst, spec, ls in got:
@@ -335,7 +409,7 @@ class _Exchange(torch.autograd.Function):
             spec_g, leaves_g = [], []
             _encode(gs, spec_g, leaves_g)
             back.append((proc, dst, src, spec_g, leaves_g))
-        got, _ = _exchange(back)
+        got, _ = _exchange(back, procs=plan["procs"])
         # One message comes back for each message sent.  They arrive grouped
         # by the process that returns them, not in the order sent, so each
         # is found by its (src, dst) pair, which names one message.
@@ -394,23 +468,15 @@ def _tie(values: list, token) -> list:
                         values)
 
 
-def _process_of(device) -> int:
-    return dist.get_rank() if is_local(device) else device.process
-
-
 def _route(sends: Sequence[tuple], devices: Sequence,
            differentiable: bool = True):
     """Deliver the values `sends` = [(src, dst, value)] (src a rank of this
-    process, dst one of another's) over the axis `devices`.  Returns
-    ({(src, dst): value} for the values that arrive here, each on its dst
-    rank's device; the token for `_tie`)."""
-    procs = {_process_of(d) for d in devices}
-    if procs != set(range(dist.get_world_size())):
-        raise NotImplementedError(
-            f"a collective over the ranks of processes {sorted(procs)}: an "
-            "axis that crosses processes must hold ranks of every process "
-            "of the group")
+    process, dst one of another's) over the axis `devices`, through the
+    group of the axis's processes.  Returns ({(src, dst): value} for the
+    values that arrive here, each on its dst rank's device; the token for
+    `_tie`)."""
     plan = {"send": [], "devices": list(devices),
+            "procs": processes_of(devices),
             "token_device": devices[local_ranks(devices)[0]]}
     leaves = []
     for src, dst, value in sends:
@@ -455,6 +521,17 @@ def _gather_values(xs: Sequence, devices: Sequence,
 # ---------------------------------------------------------------------------
 # The collectives.
 # ---------------------------------------------------------------------------
+
+def gather_ranks(xs: Sequence, devices: Sequence) -> list:
+    """Every rank's value of `xs` (tensors, ints, None, and lists and
+    tuples of them; None for another process's rank), detached: the other
+    processes' ranks' through one exchange of the axis's group, on the
+    device of this process's first rank of the axis.  `xs` itself when the
+    axis lies in this process."""
+    if not spans_processes(devices):
+        return list(xs)
+    return _gather_values(xs, devices, differentiable=False)[0]
+
 
 def all_to_all(xs: Sequence[Sequence], devices: Sequence) -> List[list]:
     """`xs[r][d]` is what rank r sends to rank d; returns `out[d][r]`, what
@@ -552,36 +629,41 @@ def pmean(xs: Sequence[torch.Tensor], devices: Sequence) -> list:
 # Between the processes, outside the collectives of an axis.
 # ---------------------------------------------------------------------------
 
-def gather_processes(value, device=None) -> list:
+def gather_processes(value, device=None,
+                     processes: Optional[Tuple[int, ...]] = None) -> list:
     """Every process's `value` (tensors, ints, None, and lists and tuples
-    of them), in process order, without autograd; the others' tensors on
-    `device` (default: the exchange's buffer device).  One process
-    alone gets [value]."""
+    of them), in the order of `processes` (default: all, through the
+    default group; else through their group, of which this process is
+    one), without autograd; the others' tensors on `device` (default: the
+    exchange's buffer device).  One process alone gets [value]."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return [value]
+    procs = tuple(range(dist.get_world_size())) if processes is None \
+        else tuple(processes)
     me = dist.get_rank()
     spec, leaves = [], []
     _encode(_map_tensors(torch.Tensor.detach, value), spec, leaves)
-    got, _ = _exchange([(q, me, q, spec, leaves)
-                        for q in range(dist.get_world_size()) if q != me])
-    out = [None] * dist.get_world_size()
-    out[me] = value
+    got, _ = _exchange([(q, me, q, spec, leaves) for q in procs if q != me],
+                       procs=procs)
+    out = [None] * len(procs)
+    out[procs.index(me)] = value
     for proc, _, _, sp, ls in got:
         it = iter(ls if device is None else [t.to(device) for t in ls])
-        out[proc] = _decode(sp, 0, lambda dt, sh: next(it))[0]
+        out[procs.index(proc)] = _decode(sp, 0, lambda dt, sh: next(it))[0]
     return out
 
 
-def all_reduce_sum(tensors: Sequence[Optional[torch.Tensor]]) -> list:
-    """The sums over the processes of float32 `tensors` (one
-    `dist.all_reduce` of one flat buffer, staged through the host under
-    gloo); None stays None."""
+def all_reduce_sum(tensors: Sequence[Optional[torch.Tensor]],
+                   processes: Tuple[int, ...]) -> list:
+    """The sums over the processes `processes` of float32
+    `tensors` (one `dist.all_reduce` of one flat buffer on their group,
+    staged through the host under gloo); None stays None."""
     live = [t for t in tensors if t is not None]
     if not live:
         return list(tensors)
     t_start = time.perf_counter()
     flat = torch.cat([t.reshape(-1) for t in live]).to(_buffer_device())
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=_group(tuple(processes)))
     TRAFFIC["calls"] += 1
     TRAFFIC["bytes"] += flat.numel() * flat.element_size()
     out, at = [], 0

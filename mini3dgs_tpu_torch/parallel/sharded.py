@@ -39,20 +39,28 @@ leaf where it lives.  None of the JAX package's psum-transpose factors
 exists here.  `verify_shard_grad_parity` holds either layout's gradients
 against single-device autograd at setup.
 
-Over ranks of several processes (parallel/distributed.py) both train steps
-run each process's own ranks (the others' entries are None in every
-per-rank list) and differ in three places only.  Each process takes the
-backward of its own copy of the loss, whose other processes' terms arrived
-detached (`mesh.psum`, and the mean over cameras here), so each term is
-differentiated once.  The gradients of what every process holds (the
-replicated state, the probe, the exposure table) are then added over the
-processes by one `mesh.all_reduce_sum`, so the replicas take the same Adam
-step bit for bit; a gauss-sharded row gets its gradient through the
-exchanges' backward alone.  And what a process did not compute (other
-cameras' losses, other ranks' counters, the first camera's radii and
-visibility that the replicated state's statistics take) arrives after the
-forward pass through `mesh.gather_processes`.  The renderers, densify and
-`verify_shard_grad_parity` take one process's mesh only.
+Over ranks of several processes (parallel/distributed.py) every axis may
+lie in one process or cross several; an axis that crosses exchanges
+through the group of its processes.  Both train steps run each process's
+own ranks (the others' entries are None in every per-rank list) and differ
+in three places only.  Each process takes the backward of its own copy of
+the loss, whose other processes' terms arrived detached (`mesh.psum`, and
+the mean over cameras here), so each term is differentiated once.  The
+gradients of what every process of the mesh holds (the replicated state,
+the probe, the exposure table) are then added over those processes by one
+`mesh.all_reduce_sum`, so the replicas take the same Adam step bit for
+bit; a gauss-sharded row gets its gradient through the exchanges' backward
+alone.  And what a process did not compute (other cameras' losses, other
+ranks' counters, the first camera's radii and visibility that the
+replicated state's statistics take) arrives after the forward pass through
+`mesh.gather_processes` over the mesh's processes.  The renderers return
+the whole image on every process that holds a rank, as the JAX package's
+`shard_map` with `out_specs=P()` does: each process renders the bands of a
+data row it holds ranks of, and the bands of the row's other processes
+arrive through the row's group.  `verify_shard_grad_parity` runs over such
+a mesh too, each process against the autograd of its own first rank.  A
+process that holds no rank of the mesh computes nothing and gets None from
+the steps, the renderers and the check.
 """
 
 from __future__ import annotations
@@ -201,6 +209,28 @@ def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
         for i, (proj, dev, b) in enumerate(zip(projs, devices, bins))]
 
 
+_BAND_KEYS = ("image", "alpha", "depth", "n_live", "seg_live")
+
+
+def _every_band(outs: Sequence[dict], devices: Sequence) -> List[dict]:
+    """Across processes: every band's render (the keys `_assemble` reads),
+    the other processes' bands detached, through the axis's group."""
+    got = M.gather_ranks([None if o is None else
+                          tuple(o.get(k) for k in _BAND_KEYS) for o in outs],
+                         devices)
+    return [dict(zip(_BAND_KEYS, v)) for v in got]
+
+
+def _render_rows(mesh: M.Mesh) -> List[int]:
+    """The data rows whose bands this process renders: the first that holds
+    one of its ranks, and every later one that holds one of them and
+    crosses processes (its other processes need this one's bands)."""
+    rows = [d for d in range(mesh.data)
+            if M.local_ranks(mesh.tile_devices(d))]
+    return rows[:1] + [d for d in rows[1:]
+                       if M.spans_processes(mesh.tile_devices(d))]
+
+
 def _assemble(outs: Sequence[dict], device, ring: bool) -> dict:
     """The whole image, alpha and depth from the bands, on `device`."""
     full = {k: M.all_gather([o[k] for o in outs], [device], dim=1)[0]
@@ -256,7 +286,7 @@ def _from_processes(mesh: M.Mesh, home, totals: list, parts_all: list,
     got = M.gather_processes((
         [None if t is None else t.detach() for t in totals],
         [None if p is None else [p[k] for k in _PARTS] for p in parts_all],
-        counters, extra), home)
+        counters, extra), home, mesh.processes())
 
     def held(pick):
         return next(v for v in map(pick, got) if v is not None)
@@ -271,19 +301,20 @@ def _from_processes(mesh: M.Mesh, home, totals: list, parts_all: list,
     return totals, parts_all, counters, extra
 
 
-def _grads(total: torch.Tensor, wrt: list, cross: bool,
+def _grads(total: torch.Tensor, wrt: list, mesh: M.Mesh, cross: bool,
            replicated: Sequence[int]) -> list:
     """The gradients of `total` with respect to `wrt` (None where the loss
     does not reach a leaf).  Across processes the leaves at the positions
-    `replicated` are held by every process: their gradients (zeros for
-    None) are added over the processes."""
+    `replicated` are held by every process of the mesh: their gradients
+    (zeros for None) are added over those processes."""
     with record_function("3dgs:backward"):
         if not cross:
             return list(torch.autograd.grad(total, wrt, allow_unused=True))
         grads = list(torch.autograd.grad(total, wrt + [M.ANCHOR],
                                          allow_unused=True)[:-1])
     summed = M.all_reduce_sum([torch.zeros_like(wrt[i]) if grads[i] is None
-                               else grads[i] for i in replicated])
+                               else grads[i] for i in replicated],
+                              mesh.processes())
     for i, g in zip(replicated, summed):
         grads[i] = g
     return grads
@@ -313,30 +344,38 @@ def _step_metrics(parts_all, counters, n_visible, ring: bool,
     return metrics
 
 
-def _single_process(mesh: M.Mesh, what: str) -> None:
-    if M.spans_processes(mesh.devices):
-        raise NotImplementedError(
-            f"{what} runs over the ranks of one process; this mesh holds "
-            "ranks of others")
+def _row_image(outs: Sequence[dict], devices: Sequence, ring: bool) -> dict:
+    """`_assemble` of one data row's bands on the device of this process's
+    first rank of the row, the other processes' bands gathered first."""
+    if M.spans_processes(devices):
+        outs = _every_band(outs, devices)
+    return _assemble(outs, devices[M.local_ranks(devices)[0]], ring)
 
 
 def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
     """Band-sharded inference renderer over the mesh's tile axis:
     (Gaussians, Camera) -> dict with the whole image [3,H,W], alpha and
-    depth [1,H,W] assembled on the first rank's device, `n_live` (per
-    rank) and, on the ring route, `seg_live[r][b]`: the instances of depth
-    range r in band b."""
-    _single_process(mesh, "make_sharded_render")
-    devices = mesh.tile_devices(0)
+    depth [1,H,W] assembled on the device of this process's first rank of
+    the row it renders (data row 0 in one process), `n_live` (per rank)
+    and, on the ring route, `seg_live[r][b]`: the instances of depth range
+    r in band b.  Over several processes every process that holds a rank
+    gets the whole image (`_render_rows`); one that holds none gets None."""
     band_h = _band_height(settings, mesh.tile)
+    rows = _render_rows(mesh)
 
-    def sharded_render(g: Gaussians, camera: Camera) -> dict:
-        gs = [g.to(dev) for dev in devices]
-        cams = [camera.to(dev) for dev in devices]
-        with record_function("3dgs:projection"):
-            projs = _project(gs, cams, settings, devices)
-        outs = _render_bands(projs, settings, band_h, devices)
-        return _assemble(outs, devices[0], settings.ring)
+    def sharded_render(g: Gaussians, camera: Camera) -> Optional[dict]:
+        full = None
+        for d in rows:
+            devices = mesh.tile_devices(d)
+            gs = [g.to(dev) if M.is_local(dev) else None for dev in devices]
+            cams = [camera.to(dev) if M.is_local(dev) else None
+                    for dev in devices]
+            with record_function("3dgs:projection"):
+                projs = _project(gs, cams, settings, devices)
+            outs = _render_bands(projs, settings, band_h, devices)
+            out = _row_image(outs, devices, settings.ring)
+            full = full or out
+        return full
 
     return sharded_render
 
@@ -368,6 +407,8 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
         if len(cameras) != mesh.data:
             raise ValueError(f"the step takes {mesh.data} cameras, one per "
                              f"rank of the data axis, got {len(cameras)}")
+        if not mesh.local_ranks():
+            return None, None  # this process holds no rank of the mesh
         st = settings if sh_degree is None \
             else settings.replace(sh_degree=sh_degree)
         g0 = state.gaussians
@@ -424,7 +465,7 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
         wrt = list(params.values()) + [probe]
         if exposure is not None:
             wrt.append(exposure)
-        grads_all = _grads(total, wrt, cross, range(len(wrt)))
+        grads_all = _grads(total, wrt, mesh, cross, range(len(wrt)))
         metrics = _step_metrics(parts_all, counters, visible.sum(), st.ring,
                                 mesh.tile)
         if grads_only:
@@ -543,7 +584,7 @@ def _every_rank(xs: Sequence, mesh: M.Mesh, device) -> list:
     autograd; `xs` itself in one process."""
     if not M.spans_processes(mesh.devices):
         return list(xs)
-    got = M.gather_processes(list(xs), device)
+    got = M.gather_processes(list(xs), device, mesh.processes())
     return [next(g[r] for g in got if g[r] is not None)
             for r in range(len(xs))]
 
@@ -659,6 +700,8 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
         if len(cameras) != n_data:
             raise ValueError(f"the step takes {n_data} cameras, one per "
                              f"rank of the data axis, got {len(cameras)}")
+        if not mine:
+            return None, None  # this process holds no rank of the mesh
         st = settings if sh_degree is None \
             else settings.replace(sh_degree=sh_degree)
         kw = _projection_kw(st)
@@ -736,7 +779,7 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
         if exposure is not None:
             wrt.append(exposure)
         # the exposure table is the one leaf that every process holds
-        grads_all = _grads(total, wrt, cross,
+        grads_all = _grads(total, wrt, mesh, cross,
                            [len(wrt) - 1] if exposure is not None else [])
         n_visible = sum(v.to(home) for v in vis_sums)
         metrics = _step_metrics(parts_all, counters, n_visible, st.ring,
@@ -769,25 +812,41 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
 def make_gauss_sharded_render(settings: RenderSettings,
                               mesh: M.Mesh) -> Callable:
     """Inference renderer over a gauss-sharded pool: (shards, Camera) ->
-    the dict of `make_sharded_render`, with `shards[r]` rank r's Gaussians.
-    Each rank projects its own rows, one gather over every rank reassembles
-    the projected set in global slot order on the ranks of the tile axis,
-    the bands render and the image is assembled on the first rank's device.
-    The parameters are never gathered."""
-    _single_process(mesh, "make_gauss_sharded_render")
-    devices = mesh.tile_devices(0)
+    the dict of `make_sharded_render`, with `shards[r]` rank r's Gaussians
+    (None for another process's rank).  Each rank projects its own rows,
+    one gather over every rank reassembles the projected set in global
+    slot order on the ranks of the tile axis (over several processes: one
+    exchange of the mesh's processes brings every rank's rows to each of
+    them), the bands render and the image is assembled as
+    `make_sharded_render` does.  The parameters are never gathered."""
     band_h = _band_height(settings, mesh.tile)
     kw = _projection_kw(settings)
+    rows = _render_rows(mesh)
 
     def gauss_sharded_render(shards: Sequence[Gaussians],
-                             camera: Camera) -> dict:
+                             camera: Camera) -> Optional[dict]:
+        if not rows:
+            return None
         with record_function("3dgs:projection"):
-            local = [project_gaussians(g, camera.to(dev), **kw)
+            local = [None if g is None else
+                     project_gaussians(g, camera.to(dev), **kw)
                      for g, dev in zip(shards, mesh.devices)]
-            projs = _gather_projected([local[r] for r in _by_block(mesh)],
-                                      devices)
-        outs = _render_bands(projs, settings, band_h, devices)
-        return _assemble(outs, devices[0], settings.ring)
+            local = [Projected(*p) for p in
+                     M.gather_ranks(local, mesh.devices)]
+            blocks = [local[r] for r in _by_block(mesh)]
+        full = None
+        for d in rows:
+            devices = mesh.tile_devices(d)
+            with record_function("3dgs:projection"):
+                # every block is here: concatenate on the local ranks
+                here = iter(M.all_gather(
+                    blocks, [dev for dev in devices if M.is_local(dev)]))
+                projs = [next(here) if M.is_local(dev) else None
+                         for dev in devices]
+            outs = _render_bands(projs, settings, band_h, devices)
+            out = _row_image(outs, devices, settings.ring)
+            full = full or out
+        return full
 
     return gauss_sharded_render
 
@@ -816,16 +875,21 @@ def verify_shard_grad_parity(config: TrainingConfig, mesh: M.Mesh,
                              tol: float = 0.05) -> float:
     """One tiny step through the real sharded step factory (`grads_only`),
     in either layout, against single-device autograd of `render` on the
-    mesh's first device: an image of mesh.tile bands of one 16-pixel tile
-    row and 16 columns, 8 slots per rank.  Returns the worst deviation of a
-    parameter's gradient, normalised by that gradient's largest entry;
-    raises RuntimeError above `tol`.  The band render runs the tile kernels
-    (their plain versions on CPU ranks)."""
+    device of this process's first rank: an image of mesh.tile bands of
+    one 16-pixel tile row and 16 columns, 8 slots per rank.  Returns the
+    worst deviation of a parameter's gradient, normalised by that
+    gradient's largest entry; raises RuntimeError above `tol`.  Over
+    several processes every process checks its own (all must call it
+    together); one that holds no rank gets None.  The band render runs
+    the tile kernels (their plain versions on CPU ranks)."""
     n_tile, n_data = mesh.tile, mesh.data
     ts = 16
     H, W = n_tile * ts, ts
     n = 8 * n_data * n_tile
-    dev = mesh.devices[0]
+    mine = mesh.local_ranks()
+    if not mine:
+        return None
+    dev = mesh.devices[mine[0]]
     rng = np.random.default_rng(0)
     xyz = np.concatenate([rng.uniform(-0.4, 0.4, (n, 2)),
                           rng.uniform(1.0, 3.0, (n, 1))],

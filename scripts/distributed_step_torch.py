@@ -12,22 +12,34 @@ Every process of the group runs this script with the same arguments:
 ranks:
 
   collectives  all_to_all with unequal slices, a partial ppermute,
-               all_gather and psum across the process boundary, against
-               the single-process list versions under a seeded upstream
+               all_gather and psum across the process boundary (the tile
+               axis of the ring mesh, or with --no-ring of the row of the
+               mesh that holds this process's first rank), against the
+               single-process list versions under a seeded upstream
                gradient (forward bitwise, gradients within 1e-6
                relative); it raises otherwise;
   1  the replicated-state `make_sharded_train_step` over
      `make_global_mesh()`: data = the processes, tile = each one's ranks,
-     band route;
+     band route (`--mesh D T` names another layout, say (2, 2) over four
+     processes of one rank, whose rows and columns each cross two);
   2  that state split over the same mesh (`shard_train_state`), saved with
      `save_sharded_checkpoint` and restored (it raises unless the restored
      shards are bitwise the saved ones), then one gauss-sharded step;
   3  the band route and ring v1 over a (1, all ranks) mesh, so every ring
      hop crosses the processes (`--ring-ranks` ranks a process);
-  4  ring v3 with the gauss-sharded state on that mesh.
+  4  ring v3 with the gauss-sharded state on that mesh;
+  5  `make_sharded_render` and `make_gauss_sharded_render` of the setup's
+     state under its first camera, over the mesh of 1 and 2 (band route)
+     and over the ring mesh (band route and ring v1): every process that
+     holds a rank gets the whole image, alpha and depth;
+  6  `verify_shard_grad_parity` over the mesh of 1 and 2, both layouts;
+  7  with `--partial D T`, one replicated step over the first D x T ranks
+     (`make_global_mesh(D, T)`), which leaves the last processes without
+     a rank: they take part in no exchange and get None.
 
-`--ring-only` runs the collectives and programs 3 and 4 alone, for a group
-whose data axis the setup's two cameras do not fill.
+`--ring-only` runs the collectives and programs 3, 4 and 5 (the ring
+mesh's renders) alone, for a group whose data axis the setup's two cameras
+do not fill; `--no-ring` leaves out the ring mesh and programs 3 and 4.
 
 Without --setup the scene is the one of tests/test_multiprocess.py, made
 here from seeds: 40 random Gaussians in 64 slots at 64x64 for programs 1
@@ -241,7 +253,8 @@ def recording(keep: dict):
 # ---- the programs -----------------------------------------------------------
 
 def check_collectives(mesh: M.Mesh, seed: int = 0) -> dict:
-    """The collectives over `mesh`'s tile axis against their single-process
+    """The collectives over the tile axis of `mesh` that holds this
+    process's first rank, against their single-process
     list versions on this process's first device, under a seeded upstream
     gradient: all_to_all of unequal slices, ppermute (a partial
     permutation), all_gather and psum.  Forward bitwise; gradients bitwise
@@ -249,7 +262,7 @@ def check_collectives(mesh: M.Mesh, seed: int = 0) -> dict:
     sum, as a step differentiates its loss, and the reference the copy of
     rank 0.  Raises otherwise; returns the worst relative gradient
     error."""
-    devices = mesh.tile_devices(0)
+    devices = mesh.tile_devices(mesh.local_ranks()[0] // mesh.tile)
     n, mine = len(devices), M.local_ranks(devices)
     single = [devices[mine[0]]] * n
     g = torch.Generator().manual_seed(seed)
@@ -342,6 +355,32 @@ def gauss_sharded_step(part: dict, mesh: M.Mesh, steps: int = 0,
     return res
 
 
+def renders(part: dict, mesh: M.Mesh, ring: bool = False) -> dict:
+    """Program 5: the part's state under its first camera through
+    `make_sharded_render` ("replicated") and `make_gauss_sharded_render`
+    ("gauss_sharded") over `mesh`, each as [image; alpha; depth] [5, H, W]
+    on the host (None on a process without a rank), with the ring route's
+    `ring`."""
+    st = part["settings"].replace(ring=ring)
+    g, cam = part["state"].gaussians, part["cameras"][0]
+    split = sharded.shard_train_state(part["state"], mesh)
+    outs = {
+        "replicated": sharded.make_sharded_render(st, mesh)(g, cam),
+        "gauss_sharded": sharded.make_gauss_sharded_render(st, mesh)(
+            [None if s is None else s.gaussians for s in split.shards],
+            cam)}
+    return {k: None if o is None else torch.cat(
+        [o["image"], o["alpha"], o["depth"]]).cpu() for k, o in outs.items()}
+
+
+def grad_parity(part: dict, mesh: M.Mesh) -> dict:
+    """Program 6: `verify_shard_grad_parity` over `mesh` in both layouts,
+    the worst deviations (None on a process without a rank)."""
+    return {layout: sharded.verify_shard_grad_parity(
+        part["config"], mesh, gauss_sharded=layout == "gauss_sharded")
+        for layout in ("replicated", "gauss_sharded")}
+
+
 def checkpoint_round_trip(part: dict, mesh: M.Mesh, out_dir) -> bool:
     """Program 2's checkpoint: the state split over `mesh`, saved by every
     process and restored into a template of the same layout; True when
@@ -388,7 +427,16 @@ def main() -> int:
                     help="timed steps after the first of each program")
     ap.add_argument("--record", action="store_true")
     ap.add_argument("--ring-only", action="store_true",
-                    help="the collectives and programs 3 and 4 only")
+                    help="the collectives and programs 3, 4 and 5 only")
+    ap.add_argument("--no-ring", action="store_true",
+                    help="leave out the ring mesh and programs 3 and 4")
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("DATA", "TILE"),
+                    help="the mesh of programs 1, 2, 5 and 6 (default: "
+                    "the processes by each one's ranks)")
+    ap.add_argument("--partial", type=int, nargs=2, default=None,
+                    metavar=("DATA", "TILE"),
+                    help="program 7's mesh of the first DATA x TILE ranks")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -411,16 +459,19 @@ def main() -> int:
                      else small_setup(), device)
     t_start = time.perf_counter()
 
-    mesh = None if args.ring_only else \
-        D.make_global_mesh(local_devices=[device] * args.ranks)
-    ring_mesh = D.make_global_mesh(
+    mesh = None if args.ring_only else D.make_global_mesh(
+        *(args.mesh or (None, None)), local_devices=[device] * args.ranks)
+    ring_mesh = None if args.no_ring else D.make_global_mesh(
         data=1, tile=D.process_count() * (args.ring_ranks or args.ranks),
         local_devices=[device] * (args.ring_ranks or args.ranks))
     report = {"process": me, "processes": D.process_count(),
               "device": str(device),
               "mesh": None if mesh is None else [mesh.data, mesh.tile],
-              "ring_mesh": [ring_mesh.data, ring_mesh.tile]}
-    report["collectives"] = check_collectives(ring_mesh, seed=10)
+              "groups": None if mesh is None
+              else sorted(list(k) for k in M.form_groups(mesh)),
+              "ring_mesh": None if ring_mesh is None
+              else [ring_mesh.data, ring_mesh.tile]}
+    report["collectives"] = check_collectives(ring_mesh or mesh, seed=10)
     keep, results = {}, {}
     with recording(keep) if args.record else contextlib.nullcontext():
         if mesh is not None:
@@ -435,16 +486,41 @@ def main() -> int:
             p2 = gauss_sharded_step(setup["mesh"], mesh, args.steps)
             results["p2_xyz"] = p2["xyz"]
             report["p2"] = summary(p2)
-        for name, ring in (("p3_band", False), ("p3_ring", True)):
-            r = replicated_step(setup["ring"], ring_mesh, args.steps, ring)
-            results[name + "_xyz"] = r["xyz"]
-            report[name] = summary(r)
-        p4 = gauss_sharded_step(setup["ring"], ring_mesh, args.steps, True)
-        results["p4_xyz"] = p4["xyz"]
-        report["p4"] = summary(p4)
+            results["p5_mesh"] = renders(setup["mesh"], mesh)
+            report["p6"] = grad_parity(setup["mesh"], mesh)
+        if ring_mesh is not None:
+            for name, ring in (("p3_band", False), ("p3_ring", True)):
+                r = replicated_step(setup["ring"], ring_mesh, args.steps,
+                                    ring)
+                results[name + "_xyz"] = r["xyz"]
+                report[name] = summary(r)
+            p4 = gauss_sharded_step(setup["ring"], ring_mesh, args.steps,
+                                    True)
+            results["p4_xyz"] = p4["xyz"]
+            report["p4"] = summary(p4)
+            for ring in (False, True):
+                results[f"p5_ring_mesh_{'ring' if ring else 'band'}"] = \
+                    renders(setup["ring"], ring_mesh, ring)
+        if args.partial is not None:
+            part = D.make_global_mesh(*args.partial,
+                                      local_devices=[device] * args.ranks)
+            report["p7_mesh"] = [part.data, part.tile]
+            report["p7_ranks"] = part.local_ranks()
+            if part.local_ranks():
+                p7 = replicated_step(setup["mesh"], part, args.steps)
+                results["p7_xyz"] = p7["xyz"]
+                report["p7"] = summary(p7)
+            else:
+                step = sharded.make_sharded_train_step(
+                    setup["mesh"]["config"], setup["mesh"]["settings"], part)
+                if step(setup["mesh"]["state"],
+                        setup["mesh"]["cameras"][:part.data]) != (None, None):
+                    raise AssertionError("a process without a rank got a "
+                                         "result")
+                results["p7_xyz"] = report["p7"] = None
     results["losses"] = {k: report[k]["loss"] for k in
-                         ("p1", "p2", "p3_band", "p3_ring", "p4")
-                         if k in report}
+                         ("p1", "p2", "p3_band", "p3_ring", "p4", "p7")
+                         if report.get(k) is not None}
     torch.save({k: v.cpu() if torch.is_tensor(v) else v
                 for k, v in results.items()}, out / f"result.p{me}.pt")
     if args.record:

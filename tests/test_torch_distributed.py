@@ -12,8 +12,12 @@ steps on the same numpy inputs, and program 1 against the JAX package's
 `make_sharded_train_step` on the virtual CPU devices of tests/conftest.py
 (Pallas in interpret mode, tile 16).  Four processes of 2 ranks each run
 the collectives and programs 3 and 4 over (1, 8) as well, so that each
-process exchanges with several others from several ranks.  A worker that
-fails, or runs out of its time, fails the tests.
+process exchanges with several others from several ranks.  Four processes
+of one rank each run both steps, both renderers and the gradient check
+over (2, 2), whose rows and columns each cross two of the four processes
+(one group of processes an axis), and a (1, 2) step that leaves two of
+them without a rank.  A worker that fails, or runs out of its time, fails
+the tests.
 """
 
 import importlib.util
@@ -133,9 +137,19 @@ def workers_4x2(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def workers_1x4(tmp_path_factory):
+    """Four processes with one rank each: programs 1, 2, 5 and 6 over
+    (2, 2), the collectives over each one's row, and program 7 over (1, 2),
+    which leaves processes 2 and 3 without a rank."""
+    return run_group(tmp_path_factory.mktemp("distributed_1x4"), 4, 1,
+                     "--mesh", "2", "2", "--no-ring", "--partial", "1", "2")
+
+
+@pytest.fixture(scope="module")
 def single():
     """The port's single-process steps on the same setup: program 1 and
-    2's over a (2, 4) mesh of CPU ranks, 3 and 4's over (1, 8)."""
+    2's over a (2, 4) mesh of CPU ranks, 3 and 4's over (1, 8); program 5's
+    renders over both."""
     setup = DS.small_setup()
     m24 = tmesh.make_mesh(2, 4, devices=["cpu"])
     m18 = tmesh.make_mesh(1, 8, devices=["cpu"])
@@ -143,7 +157,24 @@ def single():
             "p2": DS.gauss_sharded_step(setup["mesh"], m24),
             "p3_band": DS.replicated_step(setup["ring"], m18),
             "p3_ring": DS.replicated_step(setup["ring"], m18, ring=True),
-            "p4": DS.gauss_sharded_step(setup["ring"], m18, ring_local=True)}
+            "p4": DS.gauss_sharded_step(setup["ring"], m18, ring_local=True),
+            "p5_mesh": DS.renders(setup["mesh"], m24),
+            "p5_ring_mesh_band": DS.renders(setup["ring"], m18),
+            "p5_ring_mesh_ring": DS.renders(setup["ring"], m18, ring=True)}
+
+
+@pytest.fixture(scope="module")
+def single_2x2():
+    """Programs 1, 2, 5 and 6 over a (2, 2) mesh of CPU ranks in this
+    process, and program 7's step over (1, 2)."""
+    setup = DS.small_setup()
+    m22 = tmesh.make_mesh(2, 2, devices=["cpu"])
+    return {"p1": DS.replicated_step(setup["mesh"], m22),
+            "p2": DS.gauss_sharded_step(setup["mesh"], m22),
+            "p5_mesh": DS.renders(setup["mesh"], m22),
+            "p6": DS.grad_parity(setup["mesh"], m22),
+            "p7": DS.replicated_step(setup["mesh"],
+                                     tmesh.make_mesh(1, 2, devices=["cpu"]))}
 
 
 def rel(a: float, b: float) -> float:
@@ -158,6 +189,7 @@ def test_collectives_cross_the_processes(workers):
     reports, _ = workers
     for r in reports.values():
         assert r["mesh"] == [2, 4] and r["ring_mesh"] == [1, 8]
+        assert r["groups"] == []  # every axis in one process or in both
         assert r["collectives"]["forward_bitwise"] is True
         assert r["collectives"]["grad_rel_max"] <= 1e-6
 
@@ -277,6 +309,80 @@ def test_four_processes_of_two_ranks(workers_4x2, single):
             <= 1e-6
 
 
+def test_four_processes_of_one_rank_over_2x2(workers_1x4, single_2x2):
+    """Programs 1 and 2 over (2, 2) held by four processes of one rank: the
+    tile rows {0, 1}, {2, 3} and the data columns {0, 2}, {1, 3} each
+    exchange through a group of their two processes.  The collectives over
+    each process's row: forward bitwise, gradients within 1e-6.  Every
+    process's loss and xyz bitwise process 0's (the replicas); against the
+    single-process (2, 2) steps loss rel <= 1e-6, xyz <= 1e-6; the
+    checkpoint restored bitwise."""
+    reports, results = workers_1x4
+    for r in reports.values():
+        assert r["mesh"] == [2, 2] and r["ring_mesh"] is None
+        assert r["groups"] == [[0, 1], [0, 2], [1, 3], [2, 3]]
+        assert r["collectives"]["forward_bitwise"] is True
+        assert r["collectives"]["grad_rel_max"] <= 1e-6
+        assert r["p2_checkpoint_bitwise"] is True
+    a = results[0]
+    for key in ("p1", "p2"):
+        for b in results.values():
+            assert b["losses"][key] == a["losses"][key]
+            assert torch.equal(b[key + "_xyz"], a[key + "_xyz"])
+        assert rel(a["losses"][key], single_2x2[key]["loss"]) <= 1e-6
+        assert float((a[key + "_xyz"] - single_2x2[key]["xyz"]).abs()
+                     .max()) <= 1e-6
+
+
+def test_renders_over_processes(workers, workers_1x4, single, single_2x2):
+    """Program 5: `make_sharded_render` and `make_gauss_sharded_render` give
+    every process that holds a rank the whole image, alpha and depth,
+    bitwise the single-process render on the same mesh: over (2, 2) of four
+    processes (each renders its own data row), over (2, 4) of two, and over
+    (1, 8) of two on the band route and through ring v1."""
+    groups = ((workers_1x4, single_2x2, ("p5_mesh",)),
+              (workers, single, ("p5_mesh", "p5_ring_mesh_band",
+                                 "p5_ring_mesh_ring")))
+    for (_, results), ref, keys in groups:
+        for key in keys:
+            for layout in ("replicated", "gauss_sharded"):
+                want = ref[key][layout]
+                assert want.shape[0] == 5 and bool(torch.isfinite(want).all())
+                for res in results.values():
+                    assert torch.equal(res[key][layout], want), (key, layout)
+
+
+def test_grad_parity_over_processes(workers_1x4, single_2x2):
+    """Program 6: `verify_shard_grad_parity` over (2, 2) of four processes,
+    both layouts: each process against the autograd of its own rank gives
+    the single-process check's deviation (within 1e-6 of it), far inside
+    the check's 0.05."""
+    reports, _ = workers_1x4
+    for r in reports.values():
+        for layout, worst in r["p6"].items():
+            assert abs(worst - single_2x2["p6"][layout]) <= 1e-6
+            assert worst < 1e-4
+
+
+def test_a_process_without_a_rank(workers_1x4, single_2x2):
+    """Program 7: the (1, 2) mesh of the first two ranks of four processes
+    leaves processes 2 and 3 without a rank.  As the JAX package's step
+    runs there and returns arrays with no value on them, theirs take part
+    in no exchange and get None; processes 0 and 1 (whose tile axis is a
+    group of the two) agree bitwise and lie within 1e-6 of the
+    single-process (1, 2) step."""
+    reports, results = workers_1x4
+    assert [reports[k]["p7_ranks"] for k in range(4)] == [[0], [1], [], []]
+    for k in (2, 3):
+        assert reports[k]["p7"] is None and results[k]["p7_xyz"] is None
+        assert "p7" not in results[k]["losses"]
+    a, b = results[0], results[1]
+    assert a["losses"]["p7"] == b["losses"]["p7"]
+    assert torch.equal(a["p7_xyz"], b["p7_xyz"])
+    assert rel(a["losses"]["p7"], single_2x2["p7"]["loss"]) <= 1e-6
+    assert float((a["p7_xyz"] - single_2x2["p7"]["xyz"]).abs().max()) <= 1e-6
+
+
 # ---- initialize_distributed and make_global_mesh, in this process --------
 
 def test_initialize_without_a_topology_forms_no_group(monkeypatch):
@@ -321,10 +427,15 @@ def test_initialize_raises_when_the_group_cannot_form():
     assert not dist.is_initialized()
 
 
-def test_make_global_mesh_defaults_and_checks():
+def test_make_global_mesh_defaults_and_checks(monkeypatch):
     """Unwired: tile defaults to this process's ranks and data to the
     rows they fill; data * tile above the ranks raises; without a card it
-    raises unless the caller names CPU devices."""
+    raises unless the caller names CPU devices.  As process 2 of four with
+    one rank each (the process count stood in for): every layout JAX's
+    `make_global_mesh` forms forms here too, the first data x tile ranks
+    process-major: (2, 2), whose axes each cross two processes, and
+    (1, 2), which leaves this process without a rank; the over-count still
+    raises."""
     mesh = D.make_global_mesh(local_devices=["cpu"] * 4)
     assert (mesh.data, mesh.tile) == (1, 4)
     assert (D.make_global_mesh(tile=2, local_devices=["cpu"] * 4).data) == 2
@@ -335,20 +446,41 @@ def test_make_global_mesh_defaults_and_checks():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             D.make_global_mesh()
+    cpu, R = torch.device("cpu"), tmesh.Remote
+    monkeypatch.setattr(D, "process_index", lambda: 2)
+    monkeypatch.setattr(D, "gather_processes", lambda n: [n] * 4)
+    mesh = D.make_global_mesh(2, 2, local_devices=["cpu"])
+    assert mesh.devices == (R(0), R(1), cpu, R(3))
+    assert mesh.local_ranks() == [2]
+    assert mesh.data_devices(0) == [R(0), cpu]
+    mesh = D.make_global_mesh(1, 2, local_devices=["cpu"])
+    assert mesh.devices == (R(0), R(1)) and mesh.local_ranks() == []
+    assert tmesh.processes_of(mesh.devices) == (0, 1)
+    with pytest.raises(ValueError, match="mesh over 4 ranks"):
+        D.make_global_mesh(3, 2, local_devices=["cpu"])
 
 
 def test_remote_ranks_in_a_mesh():
     """A mesh names another process's ranks `Remote`: the per-axis device
-    lists carry them, and the renderers refuse such a mesh."""
+    lists carry them.  The renderer takes such a mesh: this process renders
+    the data row it holds whole (row 0, no exchange), bitwise the render
+    over one process's (2, 2) mesh; a process with no rank gets None."""
     cpu = torch.device("cpu")
     mesh = tmesh.Mesh(2, 2, (cpu, cpu, tmesh.Remote(1), tmesh.Remote(1)))
     assert mesh.local_ranks() == [0, 1] and not mesh.is_local(2)
     assert mesh.data_devices(1) == [cpu, tmesh.Remote(1)]
     assert tmesh.spans_processes(mesh.devices)
     assert not tmesh.spans_processes(mesh.tile_devices(0))
-    settings = DS.small_setup()["mesh"]["settings"]
-    with pytest.raises(NotImplementedError, match="one process"):
-        tsharded.make_sharded_render(settings, mesh)
+    part = DS.small_setup()["mesh"]
+    g, cam = part["state"].gaussians, part["cameras"][0]
+    got = tsharded.make_sharded_render(part["settings"], mesh)(g, cam)
+    want = tsharded.make_sharded_render(
+        part["settings"], tmesh.make_mesh(2, 2, devices=["cpu"]))(g, cam)
+    for k in ("image", "alpha", "depth"):
+        assert torch.equal(got[k], want[k])
+    rankless = tmesh.Mesh(1, 2, (tmesh.Remote(1), tmesh.Remote(2)))
+    assert tsharded.make_sharded_render(part["settings"], rankless)(
+        g, cam) is None
 
 
 def test_sharded_checkpoint_in_one_process(tmp_path):

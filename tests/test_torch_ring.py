@@ -113,12 +113,17 @@ def test_raster_t0_matches_jax_kernels(tile_size):
     launches = (tras.raster_fwd.launches_t0, tras.raster_bwd.launches_t0)
     acc_t = tras.raster_fwd(*args, t0=torch.from_numpy(t0), tile0=tile0)
     np.testing.assert_allclose(t2n(acc_t)[:, :5], acc_j[:, :5], atol=3e-5)
-    ends_open = (acc_j[:, 5] > 1.01 * OPEN) & (t2n(acc_t)[:, 5] > 1.01 * OPEN)
+    # Which pixels end open is read off one side, the reference's, leaving
+    # out the pixels within one float32 rounding of the threshold: a pixel
+    # classified on each side separately could land on both sides of it.
+    ends = np.float32(1.01 * OPEN)
+    band = np.spacing(ends)
+    ends_open = acc_j[:, 5] > ends + band
+    ends_closed = acc_j[:, 5] < ends - band
     assert 0.3 < ends_open.mean() < 0.95     # some pixels close on the way
     np.testing.assert_allclose(t2n(acc_t)[:, 5][ends_open],
                                acc_j[:, 5][ends_open], atol=3e-5)
-    assert t2n(acc_t)[:, 5][~ends_open].max() <= 1.01 * OPEN
-    assert acc_j[:, 5][~ends_open].max() <= 1.01 * OPEN
+    assert t2n(acc_t)[:, 5][ends_closed].max() <= ends
     assert np.all(t2n(acc_t)[:, 6:] == 0)
 
     gout = np.zeros((T, 8, P_), np.float32)
