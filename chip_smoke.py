@@ -59,16 +59,24 @@ of them without a rank (the two-process group runs the renderers too, over
 (2, 2) and over (1, 2) on both routes); and a one-process NCCL group runs
 one exchange.  Last (phase 20), graft_entry_torch.py, the twin of
 __graft_entry__.py: `entry()` on the card and `dryrun_multichip(8)` on
-eight ranks of the card, its losses against the JAX dryrun's record.  Any
-failure raises; nothing falls back to the CPU.
+eight ranks of the card, its losses against the JAX dryrun's record.
+Last (phase 21), bench_torch.py, the twin of bench.py: the first step of
+its headline and anisotropic chains (800x800, 100,000 Gaussians, SH 0)
+with B1 and B2 held against their plain versions on the launches' own
+inputs, and its `main` (which also profiles a headline step) with the
+trained line on phase 14's checkpoint, one B1 and one B2 a chain step.
+Any failure raises; nothing falls back to the CPU.
 The last three lines are a JSON object with one entry per kernel, then
 nvidia-smi's name and power limit, and {"ok": true, "device": {...}}.
 """
 
+import atexit
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
+import os
 import shutil
 import subprocess
 import struct
@@ -1918,6 +1926,107 @@ def graft_entry_phase(rc, dev) -> dict:
     return {"entry": entry, "dryrun": dryrun}
 
 
+@contextlib.contextmanager
+def recording_launches(rc, keep: list):
+    """Append to `keep` (name, arguments, output) of every launch of
+    `raster_fwd` and `raster_bwd` without t0 while the block runs.  The
+    wrappers stand in for the module's functions and carry their launch
+    counters over."""
+    origs = {name: getattr(rc, name) for name in ("raster_fwd", "raster_bwd")}
+    wrappers = {}
+    for name, orig in origs.items():
+        def wrapped(*a, _orig=orig, _name=name,
+                    _params=list(inspect.signature(orig).parameters), **k):
+            out = _orig(*a, **k)
+            call = {n: v.detach() if torch.is_tensor(v) else v
+                    for n, v in dict(zip(_params, a), **k).items()}
+            if call.get("t0") is None:
+                keep.append((_name, call, out.detach()))
+            return out
+
+        wrapped.launches, wrapped.launches_t0 = orig.launches, \
+            orig.launches_t0
+        wrappers[name] = wrapped
+        setattr(rc, name, wrapped)
+    try:
+        yield
+    finally:
+        for name, orig in origs.items():
+            orig.launches = wrappers[name].launches
+            orig.launches_t0 = wrappers[name].launches_t0
+            setattr(rc, name, orig)
+
+
+def bench_phase(rc, dev, trained_yaml: Path) -> dict:
+    """Phase 21: bench_torch.py, the twin of bench.py, on the card.  For the
+    headline scene and its anisotropic variant (800^2, 100,000 Gaussians in
+    2^17 slots, tile 32, SH 0, black, L1 against zeros), the chain's first
+    step, its one B1 and one B2 launch recorded and held against the plain
+    versions on the same inputs (`gate_acc`, `gate_rows`).  Then
+    `bench_torch.main` with `--trained-config trained_yaml` (phase 14's
+    checkpoint): its JSON line, every key finite, one B1 and one B2 launch
+    a chain step (and one B1 for the trained line's probe render).  Raises
+    on any check that fails."""
+    import bench_torch as bt
+
+    res = {"first_step": {}, "fwd_err": 0.0, "bwd_err": 0.0}
+    for name, aniso in (("headline", False), ("aniso", True)):
+        chain = bt.build(aniso=aniso, device=dev)
+        keep = []
+        with recording_launches(rc, keep):
+            chain(0.5, 1)
+        if [k for k, _, _ in keep] != ["raster_fwd", "raster_bwd"]:
+            raise AssertionError(f"21 {name}: one chain step launched "
+                                 f"{[k for k, _, _ in keep]}")
+        (_, f, acc), (_, b, d) = keep
+        fargs = (f["stream"], f["tile_start"], f["tile_count"], f["tiles_x"],
+                 f["tile_size"])
+        fwd_err = gate_acc(acc, rc.raster_fwd_plain(*fargs), f"21 {name} B1")
+        bargs = (b["stream"], b["tile_start"], b["tile_count"], b["tiles_x"],
+                 b["tile_size"], b["acc"].contiguous(),
+                 b["gout"].contiguous())
+        bwd_err = gate_rows(d, rc.raster_bwd_plain(*bargs), f"21 {name} B2")
+        res["first_step"][name] = {"instances": int(f["stream"].shape[1]),
+                                   "fwd_err": fwd_err, "bwd_err": bwd_err}
+        res["fwd_err"] = max(res["fwd_err"], fwd_err)
+        res["bwd_err"] = max(res["bwd_err"], bwd_err)
+
+    out, err = io.StringIO(), io.StringIO()
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "BENCH_FULL_GOLDEN", "BENCH_SKIP_TRAINED")}
+    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env, clear=True), \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = bt.main(["--trained-config", str(trained_yaml)])
+    res["main_seconds"] = time.perf_counter() - t0
+    res["launches"] = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+    res["stderr"] = err.getvalue().strip()
+    lines = out.getvalue().strip().splitlines()
+    if code != 0 or len(lines) != 1:
+        raise AssertionError(f"21: bench_torch.main rc {code}: "
+                             f"{out.getvalue()}\n{res['stderr']}")
+    line = res["line"] = json.loads(lines[0])
+    # time_step: one run of each length, then `reps` pairs; the headline's
+    # two profiled steps
+    steps = 4 * (2 + 12) + 2 + 3 * (2 + 10) + 4 * (2 + 10)
+    if res["launches"] != (steps + 1, steps):
+        raise AssertionError(f"21: {steps} chain steps and one probe render "
+                             f"launched the kernels {res['launches']} times")
+    numbers = ("value", "vs_baseline", "spread", "mgaussians_per_s",
+               "device_busy_ms", "device_launches", "host_launch_us",
+               "aniso_rotated_mpix_s", "trained_mpix_s", "power_limit_w")
+    if line["metric"] != bt.METRIC or line["reps"] != 3 \
+            or line["device"] != torch.cuda.get_device_name(dev) \
+            or line["checkpoint_iteration"] != 200 \
+            or line["trained_n_dropped"] != 0 \
+            or not all(np.isfinite(line[k]) and line[k] >= 0
+                       for k in numbers) \
+            or min(line[k] for k in numbers if k != "spread") <= 0:
+        raise AssertionError(f"21: the bench line is off: {line}")
+    return res
+
+
 def heavy_band(tile_count: torch.Tensor, tiles_x: int) -> tuple:
     """(first tile row, rows) of the BAND_ROWS tile rows around the
     heaviest tile of a tile-major image: phase 17's band."""
@@ -2903,11 +3012,10 @@ def main() -> int:
           flush=True)
 
     # ---- 14. the texture scene built and trained on the card ----------
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    try:
-        tx = texture_scene_phase(dev, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # Its work dir stays until phase 21 has benched its checkpoint.
+    tmp14 = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    atexit.register(shutil.rmtree, tmp14, True)
+    tx = texture_scene_phase(dev, tmp14)
     print(f"[14 texture scene] data/synthetic.py 32^2 view, card vs CPU: "
           f"{json.dumps(tx['card_vs_cpu_32'])}; one {VIEW_SIZE}^2 spp-2 "
           f"view's peak device memory {tx['view_peak_bytes'] / 2**20:.1f} "
@@ -3121,7 +3229,30 @@ def main() -> int:
           f"{' '.join(f'{v:.2e}' for v in d20['rel_to_jax'].values())}; "
           f"launches (fwd, bwd, fwd t0, bwd t0) {d20['launches']} | {smi}",
           flush=True)
-    print(f"chip_smoke: phases 1-20 passed in "
+
+    # ---- 21. the twin of bench.py --------------------------------------
+    import bench_torch
+    t21 = time.perf_counter()
+    try:
+        p21 = bench_phase(rc, dev, tmp14 / "config.yaml")
+    finally:
+        shutil.rmtree(tmp14, ignore_errors=True)
+    line21 = p21["line"]
+    print(f"[21 bench_torch.py] first chain step, B1 / B2 against their "
+          f"plain versions: {json.dumps(p21['first_step'])}; a headline "
+          f"chain step on the card (bench_torch.device_busy): busy "
+          f"{line21['device_busy_ms']:.3f} ms in "
+          f"{line21['device_launches']:.0f} launches\n"
+          f"  vs_baseline divides FULL_GOLDEN_S = {bench_torch.FULL_GOLDEN_S}"
+          f" s, a constant of bench_torch.py, not timed here: the port's "
+          f"golden step at 800^2 / 100K, {bench_torch.FULL_GOLDEN_SOURCE}\n"
+          f"  main(--trained-config <phase 14's>): {p21['main_seconds']:.1f}"
+          f" s, launches fwd/bwd {p21['launches']}; its stderr: "
+          f"{' | '.join(p21['stderr'].splitlines())}\n"
+          f"  {json.dumps(p21['line'])}\n"
+          f"[21] phase 21 took {time.perf_counter() - t21:.1f} s | {smi}",
+          flush=True)
+    print(f"chip_smoke: phases 1-21 passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- result -------------------------------------------------------
@@ -3139,9 +3270,10 @@ def main() -> int:
          "launches_distributed": dist19(0, band19),
          "launches_graft_entry": p20["entry"]["launches"]
          + d20["launches"][0],
+         "launches_bench": p21["launches"][0],
          "max_abs_err": max(fwd_err, fwd_patch_err, e17["fwd_err"],
                             mesh_runs[0]["kernels"]["fwd_err"],
-                            p18["fwd_err"], k19["fwd_err"]),
+                            p18["fwd_err"], k19["fwd_err"], p21["fwd_err"]),
          "ms": t_fwd, "plain_ms": t_fwd_plain, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1], "library_ms": None},
         {"name": "raster_bwd", "route": "cuda",
@@ -3156,9 +3288,10 @@ def main() -> int:
          "launches_band_sharded_sort": p18["sort"]["launches"][1],
          "launches_distributed": dist19(1, band19),
          "launches_graft_entry": d20["launches"][1],
+         "launches_bench": p21["launches"][1],
          "max_abs_err": max(bwd_err, patch_err,
                             mesh_runs[0]["kernels"]["bwd_err"],
-                            p18["bwd_err"], k19["bwd_err"]),
+                            p18["bwd_err"], k19["bwd_err"], p21["bwd_err"]),
          "ms": t_bwd, "plain_ms": t_bwd_plain, "bound_ms": bwd_bound[0],
          "bound_by": bwd_bound[1], "library_ms": None},
         # The two builds with t0: times, plain times and bounds are sums
@@ -3234,7 +3367,11 @@ def main() -> int:
                 "single_step_ms_median", "bytes_a_step")}
             for key, row in p19["programs_four"].items()},
         "graft_entry": {"entry_mean": p20["entry"]["mean"],
-                        "dryrun_rel_to_jax": d20["rel_to_jax"]}}))
+                        "dryrun_rel_to_jax": d20["rel_to_jax"]},
+        "bench": {k: line21[k] for k in (
+            "value", "spread", "mgaussians_per_s", "device_busy_ms",
+            "device_launches", "host_launch_us", "aniso_rotated_mpix_s",
+            "trained_mpix_s")}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,14 +7,15 @@
 // ring route; kHasT0 = true, `raster_bwd_t0_launch`).
 // Same function: for every tile, replay the tile's slice
 // [tile_start, tile_start + tile_count) front to back with the forward
-// kernel's alpha and gate arithmetic and, from the cotangent `gout` of the
-// raw accumulators `oraw` (both [tile][8][P], rows 0..4 live), write the
-// gradient rows d[x, y, qa, qb, qc, op, r, g, b, depth] of each instance
-// into column tile_start + j of d_inst [10, n_live].
+// kernel's alpha and gate arithmetic and, from the cotangent `gout`
+// [tile][8][P] of the forward's raw accumulators `oraw` (rows 0..4 live),
+// write the gradient rows d[x, y, qa, qb, qc, op, r, g, b, depth] of each
+// instance into column tile_start + j of d_inst [10, n_live].  The kernel
+// takes no `oraw`: it sums `total` itself.
 //
 // Per pixel p and instance j (T = transmittance before j, gate open while
 // 1 - T < 0.995):
-//   total = <gout[:, p], oraw[:, p]>
+//   total = sum over the pixel's list of u * wgt  (= <gout[:, p], oraw[:, p]>)
 //   u     = gout_r*r + gout_g*g + gout_b*b + gout_d*depth + gout_a
 //   wgt   = T * alpha
 //   S     = total - sum_{i<=j} u_i * wgt_i        (what lies behind j)
@@ -31,9 +32,9 @@
 // With kHasT0 (see raster_fwd.cu) T starts at t0 and row 5 of oraw is the
 // transmittance T_end the pixel ended with, row 5 of gout its cotangent.
 // Every contribution and T_end are linear in t0 and T_end carries the factor
-// (1 - alpha) of every instance passed with the gate open, so
-//   total = <gout[0..5, p], oraw[0..5, p]>
-// makes S carry the term gout_T * T_end of the ranges behind this stream, and
+// (1 - alpha) of every instance passed with the gate open, so total adds
+// gout_T * T_end (= <gout[0..5, p], oraw[0..5, p]>; T_end is what the first
+// pass leaves of T), S carries that term of the ranges behind this stream, and
 //   dt0[p] = total / max(t0[p], 1e-30)
 // is the cotangent of t0; it is stored for every pixel of every tile, so
 // dt0 needs no zero fill.  Without kHasT0 the kernel reads no t0 and no row
@@ -121,9 +122,19 @@
 // reaches the forward's sums, the gradient lay 5e-4 to 3e-3 (rel-L2 a row)
 // from float64 on the 1M stream's tiles of 46K instances, as far as the
 // float32 plain version lies; scripts/raster_precision_torch.py --band
-// splits that distance by where float32 enters.  Float64 costs a multiply
-// and a fused multiply-add more a pair on the half-rate float64 units; the
-// outputs, masks, zeros and reproducibility are as before.
+// splits that distance by where float32 enters.  With T in float64 but
+// `total` taken from the forward's float32 accumulators, the two sums were
+// of different terms (the accumulators' rounding, a part the float32 plain
+// version shares), and the gradient still lay 1e-4 to 6e-4 from float64,
+// sometimes farther than the plain version.  So a first pass walks the
+// list with the main pass's gates and arithmetic and sums `total` from the
+// very terms `prefix` adds: S is then the float64 sum of the terms behind
+// j, up to float64 rounding.  The first pass costs about what the forward
+// kernel's walk does.  The early stop compares the float64 1 - T with the
+// real 0.995 (raster_common.cuh), so that the kernel closes a pixel where
+// float64 does.  Float64 costs a multiply and a fused multiply-add
+// more a pair on the half-rate float64 units; the outputs, masks, zeros
+// and reproducibility are as before.
 //
 // Tried and dropped (timed on the card, see PERF.md): independent warps of
 // 16 x 8 pixels with four pixels a thread and no block barrier (128
@@ -185,6 +196,21 @@ __device__ __forceinline__ float reduce_rows(const float (&d)[kRows],
   return v;
 }
 
+// w = min(exp(lw), 1) of a pixel x instance pair, lw the quadratic form;
+// both passes take it from here, so that they gate and weigh alike.
+__device__ __forceinline__ float pair_weight(float dx, float dy, float qa,
+                                             float qb, float qc) {
+  const float lw = dx * dx * qa + dx * dy * qb + dy * dy * qc;
+  return fminf(expf(lw), 1.0f);
+}
+
+// u = <gout, (r, g, b, depth, 1)> of an instance's colour and depth.
+__device__ __forceinline__ float pair_u(float g_r, float g_g, float g_b,
+                                        float g_d, float g_a, float cr,
+                                        float cg, float cb, float cd) {
+  return g_r * cr + g_g * cg + g_b * cb + g_d * cd + g_a;
+}
+
 // Blocks an SM the launch bound asks for: four at one pixel a thread (64
 // registers), three at two (85).
 constexpr int blocks_per_sm_asked(int pix) { return pix == 1 ? 4 : 3; }
@@ -197,7 +223,6 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm_asked(kPix))
 raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
                   const int* __restrict__ tile_start,
                   const int* __restrict__ tile_count, int tiles_x, int tile0,
-                  const float* __restrict__ oraw,
                   const float* __restrict__ gout, const float* __restrict__ t0,
                   float* __restrict__ d_inst, float* __restrict__ dt0,
                   float* __restrict__ part_g, int* __restrict__ arrived,
@@ -234,7 +259,6 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
   float g_r[kPix], g_g[kPix], g_b[kPix], g_d[kPix], g_a[kPix];
   bool open[kPix];
   const float* go = gout + static_cast<int64_t>(t) * kAcc * P;
-  const float* oo = oraw + static_cast<int64_t>(t) * kAcc * P;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     const int i = (iy + kLaneRows * k) * kTile + ix;
@@ -245,24 +269,13 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
     g_b[k] = go[2 * P + i];
     g_d[k] = go[3 * P + i];
     g_a[k] = go[4 * P + i];
-    total[k] = static_cast<double>(g_r[k]) * oo[0 * P + i] +
-               static_cast<double>(g_g[k]) * oo[1 * P + i] +
-               static_cast<double>(g_b[k]) * oo[2 * P + i] +
-               static_cast<double>(g_d[k]) * oo[3 * P + i] +
-               static_cast<double>(g_a[k]) * oo[4 * P + i];
+    total[k] = 0.0;
     T[k] = 1.0;
-    if constexpr (kHasT0) {
-      const float t_in = t0[static_cast<int64_t>(t) * P + i];
-      total[k] += static_cast<double>(go[5 * P + i]) * oo[5 * P + i];
-      dt0[static_cast<int64_t>(t) * P + i] =
-          static_cast<float>(total[k]) / fmaxf(t_in, 1e-30f);
-      T[k] = t_in;
-    }
+    if constexpr (kHasT0) T[k] = t0[static_cast<int64_t>(t) * P + i];
     // The gate reads the transmittance before an instance; T never rises,
     // so once the gate has closed it stays closed.
     open[k] = 1.0 - T[k] < kEarlyStopA;
   }
-  if (count == 0) return;  // the same for all blocks of the tile
   auto any_open = [&]() {
     bool any = false;
 #pragma unroll
@@ -290,6 +303,79 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
     __pipeline_commit();
   };
 
+  // Thread (j, i) tests instance j of the staged chunk against the
+  // patches i and i + 4.
+  auto test_hits = [&](const float* chunk, int n) {
+    const int j = threadIdx.x % kChunk;
+#pragma unroll
+    for (int k = 0; k < kWarps * kChunk / kThreads; ++k) {
+      const int w = threadIdx.x / kChunk + k * (kThreads / kChunk);
+      s_hit[w][j] =
+          j < n &&
+          !patch_missed(
+              chunk + j * kInstStride,
+              static_cast<float>(tile_x + sub_x + (w % kPatchesX) * kPatchW),
+              static_cast<float>(tile_y + sub_y + (w / kPatchesX) * kPatchH),
+              static_cast<float>(kPatchW), static_cast<float>(kPatchH));
+    }
+  };
+
+  // Pass 1: total = the sum over the pixel's list of u * T * alpha, the
+  // terms the main pass adds to `prefix`, by the same walk and arithmetic
+  // (`pair_weight`, `pair_u`, one fused multiply-add in float64 a term).
+  // S = total - prefix is then a difference of two sums of the same terms.
+  stage(0, 0);
+  for (int base = 0, buf = 0; base < count; base += kChunk, buf ^= 1) {
+    const int n = min(kChunk, count - base);
+    __pipeline_wait_prior(0);
+    if (!__syncthreads_or(any_open())) break;
+    if (base + kChunk < count) stage(base + kChunk, buf ^ 1);
+    const float* chunk = sh + buf * kChunk * kInstStride;
+    test_hits(chunk, n);
+    __syncthreads();
+    const unsigned hits_lo = __ballot_sync(kFullMask, s_hit[warp][lane]);
+    const unsigned hits_hi = __ballot_sync(kFullMask, s_hit[warp][lane + 32]);
+    const bool warp_open = __any_sync(kFullMask, any_open());
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      unsigned hits = warp_open ? (h == 0 ? hits_lo : hits_hi) : 0u;
+      while (hits) {
+        const int j = h * 32 + __ffs(hits) - 1;
+        hits &= hits - 1;
+        const float* s = chunk + j * kInstStride;
+        const float dx = px - s[0];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          const float w = pair_weight(dx, py[k] - s[1], s[2], s[3], s[4]);
+          if (!(open[k] && w >= kWEps)) continue;
+          const float alpha = fminf(s[5] * w, 1.0f);
+          const float u = pair_u(g_r[k], g_g[k], g_b[k], g_d[k], g_a[k],
+                                 s[6], s[7], s[8], s[9]);
+          total[k] = fma(static_cast<double>(u), T[k] * alpha, total[k]);
+          T[k] *= 1.0 - alpha;
+          open[k] = 1.0 - T[k] < kEarlyStopA;
+        }
+      }
+    }
+  }
+  // With t0, row 5 of the output is T_end, what the walk left of T.
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if constexpr (kHasT0) {
+      const int i = (iy + kLaneRows * k) * kTile + ix;
+      const float t_in = t0[static_cast<int64_t>(t) * P + i];
+      total[k] = fma(static_cast<double>(go[5 * P + i]), T[k], total[k]);
+      dt0[static_cast<int64_t>(t) * P + i] =
+          static_cast<float>(total[k]) / fmaxf(t_in, 1e-30f);
+      T[k] = t_in;
+    } else {
+      T[k] = 1.0;
+    }
+    open[k] = 1.0 - T[k] < kEarlyStopA;
+  }
+  if (count == 0) return;  // the same for all blocks of the tile
+  __syncthreads();  // pass 1's last chunk is read before the main pass stages
+
   int done = 0;  // instances of the slice whose rows this block has stored
   stage(0, 0);
   for (int base = 0, buf = 0; base < count; base += kChunk, buf ^= 1) {
@@ -300,21 +386,7 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
     if (!__syncthreads_or(any_open())) break;
     if (base + kChunk < count) stage(base + kChunk, buf ^ 1);
     const float* chunk = sh + buf * kChunk * kInstStride;
-    // Thread (j, i) tests instance j against the patches i and i + 4.
-    {
-      const int j = threadIdx.x % kChunk;
-#pragma unroll
-      for (int k = 0; k < kWarps * kChunk / kThreads; ++k) {
-        const int w = threadIdx.x / kChunk + k * (kThreads / kChunk);
-        s_hit[w][j] =
-            j < n &&
-            !patch_missed(
-                chunk + j * kInstStride,
-                static_cast<float>(tile_x + sub_x + (w % kPatchesX) * kPatchW),
-                static_cast<float>(tile_y + sub_y + (w / kPatchesX) * kPatchH),
-                static_cast<float>(kPatchW), static_cast<float>(kPatchH));
-      }
-    }
+    test_hits(chunk, n);
     __syncthreads();
 
     const unsigned hits_lo = __ballot_sync(kFullMask, s_hit[warp][lane]);
@@ -347,9 +419,7 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
 #pragma unroll
         for (int k = 0; k < kPix; ++k) {
           dys[k] = py[k] - y;
-          const float lw =
-              dx * dx * qa + dx * dys[k] * qb + dys[k] * dys[k] * qc;
-          ws[k] = fminf(expf(lw), 1.0f);
+          ws[k] = pair_weight(dx, dys[k], qa, qb, qc);
         }
 #pragma unroll
         for (int k = 0; k < kPix; ++k) {
@@ -359,8 +429,8 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
           const float alpha = fminf(a_raw, 1.0f);
           const double wgt64 = T[k] * alpha;
           const float wgt = static_cast<float>(wgt64);
-          const float u =
-              g_r[k] * cr + g_g[k] * cg + g_b[k] * cb + g_d[k] * cd + g_a[k];
+          const float u = pair_u(g_r[k], g_g[k], g_b[k], g_d[k], g_a[k], cr,
+                                 cg, cb, cd);
           prefix[k] = fma(static_cast<double>(u), wgt64, prefix[k]);
           touched = true;
           d[6] += g_r[k] * wgt;
@@ -452,9 +522,8 @@ raster_bwd_kernel(const float* __restrict__ inst, int64_t n_live,
 template <int kTile, int kPix, bool kHasT0>
 int launch_tiles(const float* inst, int64_t n_live, const int* tile_start,
                  const int* tile_count, int num_tiles, int tiles_x, int tile0,
-                 const float* oraw, const float* gout, const float* t0,
-                 float* d_inst, float* dt0, float* part_g, int* sync,
-                 cudaStream_t s) {
+                 const float* gout, const float* t0, float* d_inst,
+                 float* dt0, float* part_g, int* sync, cudaStream_t s) {
   constexpr int kQuads = kTile * kTile / (kThreads * kPix);
   // part_g may be null with an empty stream: no block then gets that far.
   if (kQuads > 1 && sync == nullptr)
@@ -467,7 +536,7 @@ int launch_tiles(const float* inst, int64_t n_live, const int* tile_start,
   if (carveout != cudaSuccess) return static_cast<int>(carveout);
   // sync: arrived [num_tiles] (zero-filled), then qdone [num_tiles][kQuads].
   kernel<<<num_tiles * kQuads, kThreads, 0, s>>>(
-      inst, n_live, tile_start, tile_count, tiles_x, tile0, oraw, gout, t0,
+      inst, n_live, tile_start, tile_count, tiles_x, tile0, gout, t0,
       d_inst, dt0, part_g, sync, sync == nullptr ? nullptr : sync + num_tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -493,22 +562,22 @@ bool two_pixels_a_thread(int num_tiles) {
 template <bool kHasT0>
 int launch(const float* inst, int64_t n_live, const int* tile_start,
            const int* tile_count, int num_tiles, int tiles_x, int tile_size,
-           int tile0, const float* oraw, const float* gout, const float* t0,
-           float* d_inst, float* dt0, float* part_g, int* sync, void* stream) {
+           int tile0, const float* gout, const float* t0, float* d_inst,
+           float* dt0, float* part_g, int* sync, void* stream) {
   if (num_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_size == 16)
     return launch_tiles<16, 1, kHasT0>(inst, n_live, tile_start, tile_count,
-                                       num_tiles, tiles_x, tile0, oraw, gout,
-                                       t0, d_inst, dt0, part_g, sync, s);
+                                       num_tiles, tiles_x, tile0, gout, t0,
+                                       d_inst, dt0, part_g, sync, s);
   if (tile_size == 32 && two_pixels_a_thread(num_tiles))
     return launch_tiles<32, 2, kHasT0>(inst, n_live, tile_start, tile_count,
-                                       num_tiles, tiles_x, tile0, oraw, gout,
-                                       t0, d_inst, dt0, part_g, sync, s);
+                                       num_tiles, tiles_x, tile0, gout, t0,
+                                       d_inst, dt0, part_g, sync, s);
   if (tile_size == 32)
     return launch_tiles<32, 1, kHasT0>(inst, n_live, tile_start, tile_count,
-                                       num_tiles, tiles_x, tile0, oraw, gout,
-                                       t0, d_inst, dt0, part_g, sync, s);
+                                       num_tiles, tiles_x, tile0, gout, t0,
+                                       d_inst, dt0, part_g, sync, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -525,7 +594,7 @@ int blocks_per_sm() {
 }  // namespace
 
 // inst: [10, n_live] float32; tile_start/tile_count: [num_tiles] int32;
-// oraw, gout: [num_tiles, 8, tile_size^2] float32; d_inst: [10, n_live]
+// gout: [num_tiles, 8, tile_size^2] float32; d_inst: [10, n_live]
 // float32, zero-filled by the caller; block t works on image tile tile0 + t.
 // At tile 32 also two scratch buffers: part_g, [4, 10, n_live] float32, not
 // initialised, and sync, [5 * num_tiles] int32, zero-filled (room for four
@@ -534,11 +603,11 @@ int blocks_per_sm() {
 extern "C" int raster_bwd_launch(const float* inst, long long n_live,
                                  const int* tile_start, const int* tile_count,
                                  int num_tiles, int tiles_x, int tile_size,
-                                 int tile0, const float* oraw,
-                                 const float* gout, float* d_inst,
-                                 float* part_g, int* sync, void* stream) {
+                                 int tile0, const float* gout,
+                                 float* d_inst, float* part_g, int* sync,
+                                 void* stream) {
   return launch<false>(inst, n_live, tile_start, tile_count, num_tiles,
-                       tiles_x, tile_size, tile0, oraw, gout, nullptr, d_inst,
+                       tiles_x, tile_size, tile0, gout, nullptr, d_inst,
                        nullptr, part_g, sync, stream);
 }
 
@@ -548,12 +617,12 @@ extern "C" int raster_bwd_t0_launch(const float* inst, long long n_live,
                                     const int* tile_start,
                                     const int* tile_count, int num_tiles,
                                     int tiles_x, int tile_size, int tile0,
-                                    const float* oraw, const float* gout,
-                                    const float* t0, float* d_inst,
+                                    const float* gout, const float* t0,
+                                    float* d_inst,
                                     float* dt0, float* part_g, int* sync,
                                     void* stream) {
   return launch<true>(inst, n_live, tile_start, tile_count, num_tiles,
-                      tiles_x, tile_size, tile0, oraw, gout, t0, d_inst, dt0,
+                      tiles_x, tile_size, tile0, gout, t0, d_inst, dt0,
                       part_g, sync, stream);
 }
 

@@ -407,9 +407,9 @@ def kernel_library() -> KernelLibrary:
     head = [ptr, ctypes.c_longlong, ptr, ptr, i32, i32, i32, i32]
     lib.raster_fwd_launch.argtypes = head + [ptr, ptr]
     lib.raster_fwd_t0_launch.argtypes = head + [ptr, ptr, ptr]
-    # (..., oraw, gout, [t0,] d_inst, [dt0,] part_g, sync, stream)
-    lib.raster_bwd_launch.argtypes = head + [ptr] * 6
-    lib.raster_bwd_t0_launch.argtypes = head + [ptr] * 8
+    # (..., gout, [t0,] d_inst, [dt0,] part_g, sync, stream)
+    lib.raster_bwd_launch.argtypes = head + [ptr] * 5
+    lib.raster_bwd_t0_launch.argtypes = head + [ptr] * 7
     lib.raster_fwd_blocks_per_sm.argtypes = [i32, i32]
     lib.raster_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
     for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
@@ -544,12 +544,13 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
     `raster_bwd.launches`, or `raster_bwd.launches_t0`) or raise.  At tile
     32 the kernel runs two or four blocks a tile and adds their partial
     rows itself, in a fixed order, through a scratch buffer of four times
-    the stream's size."""
+    the stream's size.  The kernel does not read `acc`: it sums each
+    pixel's <gout, acc> itself, from the terms of its own walk."""
     device = _check_raster_args("raster_bwd", stream, tile_start, tile_count,
                                 tiles_x, tile_size, acc, gout, t0=t0,
                                 tile0=tile0, ranges_checked=ranges_checked)
     # The cotangent arrives through the epilogue's permute and slice.
-    acc, gout = acc.contiguous(), gout.contiguous()
+    gout = gout.contiguous()
     if device.type == "cpu":
         return raster_bwd_plain(stream, tile_start, tile_count, tiles_x,
                                 tile_size, acc, gout, t0, tile0)
@@ -573,7 +574,7 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
             torch.cuda.current_stream(device).cuda_stream)
     head = (stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
             tile_count.data_ptr(), T, tiles_x, tile_size, tile0,
-            acc.data_ptr(), gout.data_ptr())
+            gout.data_ptr())
     with torch.cuda.device(device):
         if t0 is None:
             rc = lib.raster_bwd_launch(*head, d_stream.data_ptr(), *tail)

@@ -47,44 +47,73 @@ def composite_chunk(px, py, x, y, qa, qb, qc, op, valid, T_in):
     return contrib, T_out
 
 
+def _chunk_terms(px, py, ptx, pty, x, y, qa, qb, qc, op, col, dep, val,
+                 tx0, tx1, ty0, ty1, T):
+    """One chunk of depth-sorted Gaussians composited onto the pixels:
+    (T after the chunk, its rgb [P,3], alpha [P] and depth [P] terms).
+    With tile bounds (tx0 not None) a Gaussian reaches only the pixels
+    whose tile (ptx, pty) lies inside its bounds."""
+    if tx0 is not None:
+        val = (val[None, :]
+               & (ptx[:, None] >= tx0[None, :]) & (ptx[:, None] <= tx1[None, :])
+               & (pty[:, None] >= ty0[None, :]) & (pty[:, None] <= ty1[None, :]))
+    contrib, T = composite_chunk(px, py, x, y, qa, qb, qc, op, val, T)
+    # One product for the three sums: its node saves `contrib` and runs
+    # whenever any of rgb, alpha and depth takes a gradient.  Under
+    # checkpointing, a node that saved it and never runs (depth's, when the
+    # loss reads only the image) would hold its recomputed [P, chunk] copy
+    # until the backward pass ends.
+    sums = contrib @ torch.cat([col, torch.ones_like(dep)[:, None],
+                                dep[:, None]], dim=1)
+    return T, sums[:, :3], sums[:, 3], sums[:, 4]
+
+
 def rasterize_pixels(px, py, means2d, conic, depth, color, opacity, visible,
                      chunk: int = 512, tile_bounds=None, tile_size: int = 16):
-    """Composite all Gaussians (depth-sorted internally) onto pixels [P].
+    """Composite the visible Gaussians (depth-sorted internally) onto
+    pixels [P].
 
     `tile_bounds` = (tx0, tx1, ty0, ty1) inclusive per-Gaussian tile AABBs:
     a Gaussian composites only onto pixels whose tile lies inside its AABB
     (the reference's binning cutoff, part of the rendered function).
-    Returns (rgb [P,3], alpha [P], depth_accum [P]), pre-background."""
+    Returns (rgb [P,3], alpha [P], depth_accum [P]), pre-background.
+
+    Under autograd each chunk is recomputed in the backward pass
+    (torch.utils.checkpoint, as the JAX golden's remat'd scan body), so
+    one chunk's [P, chunk] intermediates are alive at a time, not all of
+    them: at 800^2 and 2^17 slots those would be hundreds of GB."""
     sort_key = torch.where(visible, depth, torch.full_like(depth, torch.inf))
-    order = torch.sort(sort_key, stable=True).indices
+    # The visible Gaussians sort first; the rest would composite nothing.
+    order = torch.sort(sort_key, stable=True).indices[:int(visible.sum())]
     x, y = means2d[order, 0], means2d[order, 1]
     qa, qb, qc = conic[order, 0], conic[order, 1], conic[order, 2]
     op, col, dep, val = (opacity[order], color[order], depth[order],
                          visible[order])
+    bounds = (None,) * 4
+    ptx = pty = None
     if tile_bounds is not None:
-        tx0, tx1, ty0, ty1 = (b[order] for b in tile_bounds)
+        bounds = tuple(b[order] for b in tile_bounds)
         ptx = torch.div(px, tile_size, rounding_mode="floor").long()
         pty = torch.div(py, tile_size, rounding_mode="floor").long()
+    run = _chunk_terms
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (means2d, conic, depth, color, opacity)):
+        run = lambda *a: checkpoint(_chunk_terms, *a, use_reentrant=False)
 
     P = px.shape[0]
     T = torch.ones(P, dtype=px.dtype, device=px.device)
     rgb = torch.zeros(P, 3, dtype=px.dtype, device=px.device)
     A = torch.zeros(P, dtype=px.dtype, device=px.device)
     D = torch.zeros(P, dtype=px.dtype, device=px.device)
-    for lo in range(0, means2d.shape[0], chunk):
+    for lo in range(0, order.shape[0], chunk):
         sl = slice(lo, lo + chunk)
-        cval = val[sl]
-        if tile_bounds is not None:
-            cval = (cval[None, :]
-                    & (ptx[:, None] >= tx0[None, sl])
-                    & (ptx[:, None] <= tx1[None, sl])
-                    & (pty[:, None] >= ty0[None, sl])
-                    & (pty[:, None] <= ty1[None, sl]))
-        contrib, T = composite_chunk(px, py, x[sl], y[sl], qa[sl], qb[sl],
-                                     qc[sl], op[sl], cval, T)
-        rgb = rgb + contrib @ col[sl]
-        A = A + contrib.sum(-1)
-        D = D + contrib @ dep[sl]
+        T, c_rgb, c_A, c_D = run(
+            px, py, ptx, pty, x[sl], y[sl], qa[sl], qb[sl], qc[sl], op[sl],
+            col[sl], dep[sl], val[sl],
+            *(None if b is None else b[sl] for b in bounds), T)
+        rgb = rgb + c_rgb
+        A = A + c_A
+        D = D + c_D
     return rgb, A, D
 
 
@@ -108,21 +137,10 @@ def rasterize_image(means2d, conic, depth, color, opacity, visible,
         torch.arange(height, dtype=torch.float32, device=dev),
         torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
     px, py = xs.reshape(-1), ys.reshape(-1)
-    def block(bx, by, means2d, conic, depth, color, opacity):
-        return rasterize_pixels(bx, by, means2d, conic, depth, color,
-                                opacity, visible, chunk=chunk,
-                                tile_bounds=tile_bounds, tile_size=tile_size)
-
-    # Under autograd every block is recomputed in the backward pass, so
-    # only one block's [pixels, Gaussians] intermediates are alive at once.
-    differentiable = (means2d, conic, depth, color, opacity)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in differentiable):
-        run = lambda *a: checkpoint(block, *a, use_reentrant=False)
-    else:
-        run = block
-    parts = [run(px[i:i + pixel_block], py[i:i + pixel_block],
-                 *differentiable)
+    parts = [rasterize_pixels(px[i:i + pixel_block], py[i:i + pixel_block],
+                              means2d, conic, depth, color, opacity, visible,
+                              chunk=chunk, tile_bounds=tile_bounds,
+                              tile_size=tile_size)
              for i in range(0, px.shape[0], pixel_block)]
     rgb, A, D = (torch.cat(p, dim=0) for p in zip(*parts))
     image = rgb + (1.0 - A)[:, None] * bg[None, :]

@@ -21,8 +21,8 @@ spanning 4 launches back to back so that the card, not the host, sets it.
 Every timing includes the zero fill of the gradient, as the wrapper makes
 it.  An `--other` source has the C interface `--other-abi` names, or the
 one after a colon (`old.cu:v1`): `v1` is (..., oraw, gout, [t0,] d_inst,
-[dt0,] stream), `v2` the tree's, with the scratch buffers before the
-stream.  The first `--other` is also held against the tree's kernel
+[dt0,] stream), `v2` that with the scratch buffers before the stream, `v3`
+the tree's, `v2` without `oraw`.  The first `--other` is also held against the tree's kernel
 (largest difference of a row over the row's largest entry).
 
 Prints one JSON object that names the card and its power limit; --output
@@ -99,24 +99,25 @@ def runner(lib: ctypes.CDLL, abi: str, name: str):
     backward kernel through its C interface `abi`."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     head = [ptr, ctypes.c_longlong, ptr, ptr, i32, i32, i32, i32]
-    extra = 2 if abi == "v2" else 0
-    lib.raster_bwd_launch.argtypes = head + [ptr] * (4 + extra)
-    lib.raster_bwd_t0_launch.argtypes = head + [ptr] * (6 + extra)
+    oraw = abi in ("v1", "v2")
+    n = 3 + oraw + (0 if abi == "v1" else 2)
+    lib.raster_bwd_launch.argtypes = head + [ptr] * n
+    lib.raster_bwd_t0_launch.argtypes = head + [ptr] * (n + 2)
     lib.raster_bwd_launch.restype = lib.raster_bwd_t0_launch.restype = i32
 
     def run(stream, start, count, tiles_x, ts, acc, gout, t0=None, tile0=0):
         d = torch.zeros_like(stream)
         T = start.shape[0]
         tail = [torch.cuda.current_stream().cuda_stream]
-        if abi == "v2":
+        if abi != "v1":
             quads = (ts // rc.SUB_TILE) ** 2
             part = torch.empty(quads, *stream.shape, device=stream.device)
             sync = torch.zeros((1 + quads) * T, dtype=torch.int32,
                                device=stream.device)
             tail = [part.data_ptr(), sync.data_ptr()] + tail
         head = (stream.data_ptr(), stream.shape[1], start.data_ptr(),
-                count.data_ptr(), T, tiles_x, ts, tile0, acc.data_ptr(),
-                gout.data_ptr())
+                count.data_ptr(), T, tiles_x, ts, tile0,
+                *([acc.data_ptr()] if oraw else []), gout.data_ptr())
         if t0 is None:
             code = lib.raster_bwd_launch(*head, d.data_ptr(), *tail)
             result = d
@@ -197,7 +198,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--other", action="append", default=[],
                    help="SOURCE.cu or SOURCE.cu:ABI")
-    p.add_argument("--other-abi", choices=("v1", "v2"), default="v1")
+    p.add_argument("--other-abi", choices=("v1", "v2", "v3"), default="v1")
     p.add_argument("--output", type=Path, default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -212,7 +213,7 @@ def main(argv=None) -> int:
     blocks = {f"tile{ts}_pix{pix}{'_t0' if t0 else ''}":
               built.lib.raster_bwd_blocks_per_sm(ts, pix, t0)
               for ts, pix in ((16, 1), (32, 1), (32, 2)) for t0 in (0, 1)}
-    kernels = {"tree": runner(built.lib, "v2", "tree")}
+    kernels = {"tree": runner(built.lib, "v3", "tree")}
     for other in args.other:
         source, _, abi = other.partition(":")
         kernels[Path(source).stem] = runner(build_other(Path(source)),

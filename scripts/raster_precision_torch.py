@@ -20,7 +20,8 @@ BAND_ROWS tile rows around the heaviest tile of training view 0
 how far B2 and its float32 plain version lie from the float64 plain
 version d_64, and splits that distance by where float32 enters, with a
 float64 model of the kernel that walks each tile's list one instance at a
-time (`emulate_bwd`) and rounds to float32 only the part named:
+time, twice as B2 does (`emulate_bwd`: a first walk sums `total`, the
+second forms the gradient), and rounds to float32 only the part named:
 
   (a) the accumulators: the float64 backward fed B1's float32 accumulators
       (the phase's `acc_b`, which kernel and plain version share) instead
@@ -33,15 +34,26 @@ time (`emulate_bwd`) and rounds to float32 only the part named:
   (d) the exponent lw of each pixel x instance pair, evaluated in float32
       as the kernel's fused multiply-adds do;
   (e) the weight w = exp(lw) and alpha = op * w rounded to float32;
+  (f) the gradient's terms of each pair (u, T, S, d_alpha, d_lw and the
+      rows' products) rounded to float32 as the kernel forms them;
+  (g) the sums of those terms over a tile's pixels taken in float32 (in
+      torch's order, not the kernel's);
 
-and the combinations.  `--other-bwd SOURCE.cu` (the tree's C interface)
+and the combinations: "defg" models B2 as it is, "adefg" B2 as it was
+when it took `total` from B1's accumulators, "abcdefg" the float32
+plain version.  `--repeat K` trains the pool K times (on the card no two
+trainings give quite the same state, so neither do their bands), prints
+each band's distances and whether B2 gave the same bits twice, and splits
+the band where B2 lies farthest; for that band it also says, per row, how
+much of B2's distance its ten farthest instances hold and where the
+farthest lies in its tile's list.  `--other-bwd SOURCE.cu` (the tree's C interface)
 and `--other-fwd SOURCE.cu` measure other builds of B2 and B1 on the same
 band: each backward on `acc_b`, each forward feeding the tree's B2 and
 the float32 plain version.
 
 Usage: python3 scripts/raster_precision_torch.py [--n-points 1000000]
            [--iters 30] [--views 1] [--cuts 8 16]
-       python3 scripts/raster_precision_torch.py --band
+       python3 scripts/raster_precision_torch.py --band [--repeat 6]
            [--other-bwd build/ab/v.cu ...] [--other-fwd build/ab/f.cu ...]
            [--output build/precision_band.json]
 """
@@ -75,16 +87,21 @@ def rel_rows(got: torch.Tensor, want: torch.Tensor) -> list:
 
 # The parts of emulate_bwd's model: (name, accumulators of B1 in float32,
 # T in float32, prefix and S in float32, lw in float32, w and alpha in
-# float32).
-SPLIT = (("exact", False, False, False, False, False),
-         ("a_acc", True, False, False, False, False),
-         ("b_T", False, True, False, False, False),
-         ("c_sub", False, False, True, False, False),
-         ("d_lw", False, False, False, True, False),
-         ("e_w", False, False, False, False, True),
-         ("abc", True, True, True, False, False),
-         ("de", False, False, False, True, True),
-         ("abcde", True, True, True, True, True))
+# float32, the per-pair gradient terms in float32, the sums over a tile's
+# pixels in float32).  "defg" is B2 as it is (T, `prefix` and its own
+# `total` in float64, the rest float32), "adefg" B2 before it summed
+# `total` itself, "abcdefg" the float32 plain version.
+SPLIT = (("exact", False, False, False, False, False, False, False),
+         ("a_acc", True, False, False, False, False, False, False),
+         ("b_T", False, True, False, False, False, False, False),
+         ("c_sub", False, False, True, False, False, False, False),
+         ("d_lw", False, False, False, True, False, False, False),
+         ("e_w", False, False, False, False, True, False, False),
+         ("f_grad", False, False, False, False, False, True, False),
+         ("g_sum", False, False, False, False, False, False, True),
+         ("defg", False, False, False, True, True, True, True),
+         ("adefg", True, False, False, True, True, True, True),
+         ("abcdefg", True, True, True, True, True, True, True))
 
 
 def emulate_bwd(stream, start, count, tiles_x, ts, tile0, acc64, acc32,
@@ -92,9 +109,11 @@ def emulate_bwd(stream, start, count, tiles_x, ts, tile0, acc64, acc32,
     """B2's gradient [len(parts), 10, n_live] in float64, one instance of
     every tile's list at a time as the kernel walks it, for each part of
     `parts` at once; a part rounds to float32 what it names (see SPLIT).
-    A first walk takes each part's own forward: total = <gout, acc> is the
-    sum of u * wgt under that part's own w, alpha and T, in float64, except
-    where the part takes B1's accumulators `acc32` (a)."""
+    As B2 does, a first walk sums each part's own `total`: the sum of
+    u * wgt under that part's own w, alpha and T, in float64, except where
+    the part takes B1's accumulators `acc32` (a), as B2 did before it
+    walked twice, or rounds `total` to float32 (c), as the plain version
+    does.  The second walk forms the gradient."""
     from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops.raster_ref import EARLY_STOP_A, W_EPS
 
@@ -102,7 +121,8 @@ def emulate_bwd(stream, start, count, tiles_x, ts, tile0, acc64, acc32,
     dev = stream.device
     flag = lambda k: torch.tensor([p[k] for p in parts],
                                   device=dev)[:, None, None]
-    use32, t32, p32, lw32, w32 = (flag(k) for k in range(1, 6))
+    use32, t32, p32, lw32, w32, g32 = (flag(k) for k in range(1, 7))
+    s32 = flag(7)[:, :, 0]
     n_tiles, P = start.shape[0], ts * ts
     px, py = (c.double() for c in rc._pixel_coords(n_tiles, tiles_x, ts, dev,
                                                    tile0))
@@ -112,6 +132,9 @@ def emulate_bwd(stream, start, count, tiles_x, ts, tile0, acc64, acc32,
     s64 = stream.double()
     start_l, count_l = start.long(), count.long()
     f32 = lambda x: x.float().double()
+    r32 = lambda x: torch.where(g32, f32(x), x)   # a float32 gradient term
+    # a sum over the tile's pixels [V, T, P] -> [V, T]
+    psum = lambda x: torch.where(s32, x.float().sum(-1).double(), x.sum(-1))
 
     def pair(j, is_open):
         """The terms of instance j of every tile at every pixel."""
@@ -152,20 +175,25 @@ def emulate_bwd(stream, start, count, tiles_x, ts, tile0, acc64, acc32,
             else:
                 prefix = torch.where(p32 & m["live"], f32(prefix + u * wgt),
                                      prefix + u * wgt)
-                S = torch.where(p32, f32(total - prefix), total - prefix)
+                S = torch.where(p32 | g32, f32(total - prefix),
+                                total - prefix)
                 mask = m["live"] & (m["a_raw"] < 1.0) & (m["a_raw"] > 0.0)
-                d_alpha = torch.where(mask, u * trans - S / (1.0 - alpha),
-                                      0.0)
-                d_lw = torch.where(w < 1.0, w * d_alpha * op, 0.0)
+                d_alpha = torch.where(
+                    mask, r32(r32(r32(u) * r32(trans))
+                              - r32(S / r32(1.0 - alpha))), 0.0)
+                d_lw = torch.where(w < 1.0, r32(r32(w * d_alpha) * op), 0.0)
                 dx, dy, qa, qb, qc = (m[k] for k in
                                       ("dx", "dy", "qa", "qb", "qc"))
+                wgt_g = r32(wgt)
                 rows = torch.stack([
-                    -(d_lw * (2.0 * dx * qa + dy * qb)).sum(-1),
-                    -(d_lw * (2.0 * dy * qc + dx * qb)).sum(-1),
-                    (d_lw * dx * dx).sum(-1), (d_lw * dx * dy).sum(-1),
-                    (d_lw * dy * dy).sum(-1), (d_alpha * w).sum(-1),
-                    (g_r * wgt).sum(-1), (g_g * wgt).sum(-1),
-                    (g_b * wgt).sum(-1), (g_d * wgt).sum(-1)],
+                    -psum(r32(d_lw * r32(2.0 * dx * qa + dy * qb))),
+                    -psum(r32(d_lw * r32(2.0 * dy * qc + dx * qb))),
+                    psum(r32(d_lw * r32(dx * dx))),
+                    psum(r32(d_lw * r32(dx * dy))),
+                    psum(r32(d_lw * r32(dy * dy))),
+                    psum(r32(d_alpha * w)),
+                    psum(r32(g_r * wgt_g)), psum(r32(g_g * wgt_g)),
+                    psum(r32(g_b * wgt_g)), psum(r32(g_d * wgt_g))],
                     dim=1)                                   # [V, 10, T]
                 valid = m["valid"]
                 out[:, :, start_l[valid] + j] = rows[:, :, valid]
@@ -201,26 +229,19 @@ def fwd_runner(lib):
     return run
 
 
-def band_split(args) -> dict:
-    """--band: phase 17's band, its distances from float64 and their
-    split (module docstring)."""
-    import chip_smoke as C
-    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+def trained_band(C, rc, dev, scene: Path) -> dict:
+    """One phase 17 training of the 1M pool on `scene` and its band: the
+    stream, the band's tile ranges, B1's accumulators, the cotangent, B2
+    twice, the float32 plain version and the float64 one."""
     from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
 
-    ab = C.load_script("ab_raster_bwd_torch")
-    dev = torch.device("cuda", 0)
-    tmp = Path(tempfile.mkdtemp(prefix="raster_precision_"))
-    t_start = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        C.load_script("make_synthetic_scene_torch").main([
-            "--out", str(tmp / "scene"), "--n-train", "8", "--n-test", "1",
-            "--size", str(C.VIEW_SIZE), "--spp", "1", "--device", "cuda"])
-        with C.MethodTimes(GaussianTrainer, ["setup"], dev) as mt:
-            C.load_script("train_1m_torch").main([
-                "--scene", str(tmp / "scene"), "--iters", "40", "--steady",
-                "20", "--log-interval", "1", "--n-points", "1000000",
-                "--capacity", str(2 ** 20), "--device", "cuda"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            C.MethodTimes(GaussianTrainer, ["setup"], dev) as mt:
+        C.load_script("train_1m_torch").main([
+            "--scene", str(scene), "--iters", "40", "--steady", "20",
+            "--log-interval", "1", "--n-points", "1000000",
+            "--capacity", str(2 ** 20), "--device", "cuda"])
     tr = mt.objects[0]
     proj = C.project_with(tr.state.gaussians, tr.train_cameras()[0],
                           tr.settings)
@@ -232,44 +253,110 @@ def band_split(args) -> dict:
     acc_b = rc.raster_fwd(*bf, tile0=lo)
     g_b = C.seeded_gout(acc_b, 1717)
     d_k = rc.raster_bwd(*bf, acc_b, g_b, tile0=lo)
-    d_32 = rc.raster_bwd_plain(*bf, acc_b, g_b, tile0=lo)
     acc64 = rc.raster_fwd_plain(stream.double(), *bf[1:], tile0=lo)
-    d_64 = rc.raster_bwd_plain(stream.double(), *bf[1:], acc64,
-                               g_b.double(), tile0=lo)
-    rel = lambda a: rel_rows(a, d_64)
-    out = {"card": ab.card(), "band_rows": [row0, n_rows],
-           "n_live_band": int(b.tile_count[lo:hi].sum()),
-           "heaviest_tile": int(b.tile_count.max()),
-           "setup_s": time.perf_counter() - t_start,
-           "kernel": rel(d_k), "plain32": rel(d_32)}
-    out["kernel_over_plain32"] = [k / p for k, p in
-                                  zip(out["kernel"], out["plain32"])]
+    return dict(
+        bf=bf, lo=lo, tiles_x=tiles_x, acc_b=acc_b, g_b=g_b, acc64=acc64,
+        d_k=d_k, d_k2=rc.raster_bwd(*bf, acc_b, g_b, tile0=lo),
+        d_32=rc.raster_bwd_plain(*bf, acc_b, g_b, tile0=lo),
+        d_64=rc.raster_bwd_plain(stream.double(), *bf[1:], acc64,
+                                 g_b.double(), tile0=lo),
+        band_rows=[row0, n_rows], heaviest_tile=int(b.tile_count.max()),
+        n_live_band=int(b.tile_count[lo:hi].sum()),
+        setup_s=time.perf_counter() - t0)
+
+
+def where_it_lies(band: dict, top: int = 10) -> dict:
+    """Per row: the share of the kernel's squared distance from float64
+    that its `top` farthest instances hold, and for the farthest one its
+    place in its tile's list, its tile's length and the three values."""
+    d_k, d_32, d_64 = band["d_k"].double(), band["d_32"].double(), \
+        band["d_64"]
+    start, count = (t.long() for t in band["bf"][1:3])
+    tile = torch.repeat_interleave(torch.arange(count.shape[0],
+                                                device=count.device), count)
+    col = torch.cat([torch.arange(s, s + c, device=count.device)
+                     for s, c in zip(start.tolist(), count.tolist())])
+    out = []
+    for r in range(d_64.shape[0]):
+        err = (d_k[r, col] - d_64[r, col]) ** 2
+        vals, idx = torch.topk(err, min(top, err.numel()))
+        i = int(idx[0])
+        t = int(tile[i])
+        out.append({
+            "top_share": float(vals.sum() / err.sum().clamp(min=1e-300)),
+            "place": int(col[i] - start[t]), "tile_count": int(count[t]),
+            "kernel": float(d_k[r, col[i]]), "plain32": float(d_32[r, col[i]]),
+            "float64": float(d_64[r, col[i]]),
+            "row_max_float64": float(d_64[r, col].abs().max())})
+    return out
+
+
+def band_split(args) -> dict:
+    """--band: phase 17's band trained --repeat times; each one's distances
+    from float64, and the split of the one where B2 lies farthest (module
+    docstring)."""
+    import chip_smoke as C
+    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+
+    ab = C.load_script("ab_raster_bwd_torch")
+    dev = torch.device("cuda", 0)
+    tmp = Path(tempfile.mkdtemp(prefix="raster_precision_"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        C.load_script("make_synthetic_scene_torch").main([
+            "--out", str(tmp / "scene"), "--n-train", "8", "--n-test", "1",
+            "--size", str(C.VIEW_SIZE), "--spp", "1", "--device", "cuda"])
+    out = {"card": ab.card(), "runs": []}
+    worst = None
+    for i in range(args.repeat):
+        band = trained_band(C, rc, dev, tmp / "scene")
+        rel = lambda a, d_64=band["d_64"]: rel_rows(a, d_64)
+        run = {k: band[k] for k in ("band_rows", "n_live_band",
+                                    "heaviest_tile", "setup_s")}
+        run.update(kernel=rel(band["d_k"]), plain32=rel(band["d_32"]),
+                   bitwise_reproducible=bool(torch.equal(band["d_k"],
+                                                         band["d_k2"])))
+        run["kernel_over_plain32"] = [k / p for k, p in
+                                      zip(run["kernel"], run["plain32"])]
+        out["runs"].append(run)
+        print(f"band {i}: kernel {max(run['kernel']):.2e}, ratio "
+              f"{max(run['kernel_over_plain32']):.3f}, reproducible "
+              f"{run['bitwise_reproducible']}", file=sys.stderr, flush=True)
+        if worst is None or max(run["kernel"]) > max(out["runs"][worst]
+                                                     ["kernel"]):
+            worst, kept = i, band
+        del band
+    band, bf, lo = kept, kept["bf"], kept["lo"]
+    rel = lambda a: rel_rows(a, band["d_64"])
+    out["split_of_run"] = worst
+    out["where"] = where_it_lies(band)
     t_split = time.perf_counter()
-    em = emulate_bwd(stream, *bf[1:3], tiles_x, 32, lo, acc64, acc_b, g_b)
+    em = emulate_bwd(bf[0], *bf[1:3], band["tiles_x"], 32, lo,
+                     band["acc64"], band["acc_b"], band["g_b"])
     torch.cuda.synchronize()
     out["split_s"] = time.perf_counter() - t_split
     out["split"] = {name: rel(em[i]) for i, (name, *_) in enumerate(SPLIT)}
+    acc_b, g_b = band["acc_b"], band["g_b"]
     for src in args.other_bwd:
-        run = ab.runner(ab.build_other(Path(src)), "v2", src)
+        run = ab.runner(ab.build_other(Path(src)), "v3", src)
         d_o = run(*bf, acc_b, g_b, tile0=lo)
         out[f"bwd {Path(src).stem}"] = rel(d_o)
         out[f"bwd {Path(src).stem} over plain32"] = [
-            k / p for k, p in zip(rel(d_o), out["plain32"])]
+            k / p for k, p in zip(rel(d_o), rel(band["d_32"]))]
         out[f"bwd {Path(src).stem} bitwise reproducible"] = bool(torch.equal(
             d_o, run(*bf, acc_b, g_b, tile0=lo)))
     for src in args.other_fwd:
         acc_o = fwd_runner(ab.build_other(Path(src)))(*bf, tile0=lo)
         name = f"fwd {Path(src).stem}"
         out[name + " acc rel to float64"] = rel_rows(acc_o[:, :5],
-                                                     acc64[:, :5])
-        out[name + " tree acc rel to float64"] = rel_rows(acc_b[:, :5],
-                                                          acc64[:, :5])
+                                                     band["acc64"][:, :5])
+        out[name + " tree acc rel to float64"] = rel_rows(
+            acc_b[:, :5], band["acc64"][:, :5])
         out[name + " -> tree bwd"] = rel(rc.raster_bwd(*bf, acc_o, g_b,
                                                         tile0=lo))
         out[name + " -> plain32"] = rel(rc.raster_bwd_plain(*bf, acc_o, g_b,
                                                              tile0=lo))
         for src_b in args.other_bwd:
-            run = ab.runner(ab.build_other(Path(src_b)), "v2", src_b)
+            run = ab.runner(ab.build_other(Path(src_b)), "v3", src_b)
             out[f"{name} -> bwd {Path(src_b).stem}"] = rel(
                 run(*bf, acc_o, g_b, tile0=lo))
     return out
@@ -284,6 +371,9 @@ def main(argv=None) -> int:
     ap.add_argument("--band", action="store_true",
                     help="replay chip_smoke.py phase 17's band and split "
                     "B2's distance from float64")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="--band: train the pool this many times and split "
+                    "the band where B2 lies farthest from float64")
     ap.add_argument("--other-bwd", action="append", default=[])
     ap.add_argument("--other-fwd", action="append", default=[])
     ap.add_argument("--output", type=Path, default=None)

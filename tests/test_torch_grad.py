@@ -356,12 +356,12 @@ def test_render_gradients_match_jax(raster):
 
 
 def test_golden_gradients_do_not_depend_on_the_pixel_block():
-    """The golden composites pixels in blocks, each recomputed in the
-    backward pass (torch.utils.checkpoint).  Three blocks of 500 pixels
-    against one block: the image is bitwise equal (a pixel's arithmetic does
-    not see its block); the gradients are sums over pixels taken block by
-    block, so they differ by float32 association only, atol 1e-5 of each
-    group's largest entry."""
+    """The golden composites pixels in blocks (each chunk of Gaussians is
+    recomputed in the backward pass, torch.utils.checkpoint).  Three
+    blocks of 500 pixels against one block: the image is bitwise equal (a
+    pixel's arithmetic does not see its block); the gradients are sums
+    over pixels taken block by block, so they differ by float32
+    association only, atol 1e-5 of each group's largest entry."""
     jc = identity_camera(32, 32, 70.0)
     jg = random_scene(40, seed=2, spread=0.35, zmin=0.6, zmax=3.0)
     params, alive = numpy_scene(jg)
