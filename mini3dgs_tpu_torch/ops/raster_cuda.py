@@ -33,8 +33,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
+from ..utils import profiling
 from . import binning as B
 from .projection import Projected
 from .raster_ref import EARLY_STOP_A, W_EPS
@@ -613,7 +613,7 @@ class _RasterOp(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gout):
         stream, tile_start, tile_count, acc, t0 = ctx.saved_tensors
-        with record_function("3dgs:raster_bwd"):
+        with profiling.stage("3dgs:raster_bwd"):
             # The forward held these ranges against this stream.
             d = raster_bwd(stream, tile_start, tile_count, ctx.tiles_x,
                            ctx.tile_size, acc, gout, t0, ctx.tile0,
@@ -635,9 +635,10 @@ def raster_op(stream: torch.Tensor, tile_start: torch.Tensor,
 
 def tile_stream(proj: Projected, H: int, W: int, tile_size: int):
     """Binning and pack: returns (Binning, stream [STREAM_ROWS, n_live])."""
-    with record_function("3dgs:binning"):
+    with profiling.stage("3dgs:binning"):
         b = B.bin_gaussians(proj, H, W, tile_size)
-    with record_function("3dgs:pack"):
+        profiling.count("instances", b.n_live)
+    with profiling.stage("3dgs:pack"):
         return b, B.pack_instances(instance_attrs(proj), b)
 
 
@@ -688,12 +689,12 @@ def rasterize_tiles(proj: Projected, H: int, W: int, bg: torch.Tensor, *,
         if b.tile_start.shape[0] != tiles.stop - tiles.start:
             raise ValueError(f"the binning holds {b.tile_start.shape[0]} "
                              f"tiles, the band {tiles.stop - tiles.start}")
-        with record_function("3dgs:pack"):
+        with profiling.stage("3dgs:pack"):
             stream = B.pack_instances(instance_attrs(proj), b)
         start, count = b.tile_start, b.tile_count
-    with record_function("3dgs:raster_fwd"):
+    with profiling.stage("3dgs:raster_fwd"):
         acc = fwd(stream, start, count, tiles_x, tile_size, tile0=tile0)
-    with record_function("3dgs:epilogue"):
+    with profiling.stage("3dgs:epilogue"):
         image, alpha, depth = compose_image(acc, H, W, tile_size, bg)
     return {"image": image, "alpha": alpha, "depth": depth,
             "n_dropped": b.n_dropped, "n_dropped_large": b.n_dropped_large,

@@ -16,10 +16,10 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..core.camera import Camera
 from ..core.gaussians import Gaussians
+from ..utils import profiling
 from . import raster_ref
 from .projection import project_gaussians
 from .raster_cuda import rasterize_tiles
@@ -64,6 +64,7 @@ class RenderSettings:
         return dataclasses.replace(self, **changes)
 
 
+@profiling.step("render")
 def render(gaussians: Gaussians, camera: Camera,
            settings: Optional[RenderSettings] = None,
            means2d_probe: Optional[torch.Tensor] = None) -> dict:
@@ -85,9 +86,9 @@ def render(gaussians: Gaussians, camera: Camera,
     bg = torch.as_tensor(settings.bg_color, dtype=torch.float32,
                          device=gaussians.device)
 
-    # The record_function ranges name the stages of a step in a
-    # torch.profiler trace (scripts/profile_step_torch.py reads them).
-    with record_function("3dgs:projection"):
+    # Each stage opens its torch.profiler range (scripts/profile_step_torch.py
+    # and the benchmark read them) and, inside profiling.recording(), a span.
+    with profiling.stage("3dgs:projection"):
         proj = project_gaussians(
             gaussians, camera,
             radius_min=settings.radius_min, radius_max=settings.radius_max,

@@ -49,11 +49,11 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..ops import binning as B
 from ..ops import raster_cuda as RC
 from ..ops.projection import Projected
+from ..utils import profiling
 from . import mesh as M
 
 
@@ -168,10 +168,10 @@ def _rank_local_rows(blocks: Sequence[Projected],
     the projected set, each rank's C/n projected rows of its depth-rank
     range, in rank order."""
     field = lambda f, ps: [None if p is None else f(p) for p in ps]
-    with record_function("3dgs:ring_ranks"):
+    with profiling.stage("3dgs:ring_ranks"):
         ranks = distributed_ranks(field(lambda p: p.depth, blocks),
                                   field(lambda p: p.visible, blocks), devices)
-    with record_function("3dgs:ring_reshard"):
+    with profiling.stage("3dgs:ring_reshard"):
         rows, _ = rank_reshard_rows(field(_as_rows, blocks), ranks, devices)
     return field(_from_rows, rows)
 
@@ -214,7 +214,7 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
     send, origins = [None] * n, [None] * n
     for i in mine:
         proj = projs[i]
-        with record_function("3dgs:ring_origin"):
+        with profiling.stage("3dgs:ring_origin"):
             if local is None:
                 rb = B.bin_gaussians_ring_origin(proj, H, W, tile_size, i, n)
             else:
@@ -232,7 +232,7 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
         # ---- pre-placement: segment b -> rank (b + i) mod n ----
         send[i] = [segs[(d - i) % n] for d in range(n)]
         origins[i] = rb
-    with record_function("3dgs:ring_exchange"):
+    with profiling.stage("3dgs:ring_exchange"):
         buf = M.all_to_all(send, devices)
     # entry r at rank j now holds (band (j - r) mod n, range r); after s
     # backward shifts, entry 0 is (band j, range s): the ring invariant.
@@ -245,7 +245,7 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
     for s in range(n):
         for j in mine:
             stream, start, count = buf[j][0]
-            with record_function("3dgs:ring_raster"):
+            with profiling.stage("3dgs:ring_raster"):
                 out = RC.raster_op(stream, start, count, tiles_x, tile_size,
                                    t0=trans[j], tile0=j * ntb,
                                    ranges_checked=True)
@@ -253,14 +253,14 @@ def ring_rasterize_bands(projs: Sequence[Projected], band_h: int, W: int,
             acc[j] = out[:, :5] if s == 0 else acc[j] + out[:, :5]
             trans[j] = out[:, 5:6]
         if s + 1 < n:
-            with record_function("3dgs:ring_exchange"):
+            with profiling.stage("3dgs:ring_exchange"):
                 buf = M.ppermute([None if entries is None else entries[1:]
                                   for entries in buf], perm, devices)
 
     outs = [None] * n
     for j in mine:
         dev = devices[j]
-        with record_function("3dgs:epilogue"):
+        with profiling.stage("3dgs:epilogue"):
             pad = torch.zeros(ntb, RC.N_ACC - 5, P, dtype=torch.float32,
                               device=dev)
             image, alpha, depth = RC.compose_image(

@@ -71,7 +71,6 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import TrainingConfig
 from ..core.camera import Camera
@@ -85,6 +84,7 @@ from ..train.exposure import apply_exposure
 from ..train.optimizer import AdamState
 from ..train.trainer import (TrainState, apply_gradients, create_train_state,
                              densify_step, mask_dead_gradients)
+from ..utils import profiling
 from . import mesh as M
 from .ring import ring_rasterize_bands
 
@@ -198,9 +198,11 @@ def _render_bands(projs: Sequence[Projected], settings: RenderSettings,
         return ring_rasterize_bands(projs, band_h, W, settings.bg_color,
                                     devices, tile_size=settings.tile_size,
                                     reshard=settings.ring_reshard)
-    with record_function("3dgs:binning"):
+    with profiling.stage("3dgs:binning"):
         bins = bin_gaussians_sharded(projs, band_h, W, settings.tile_size,
                                      devices)
+        profiling.count("instances",
+                        sum(b.n_live for b in bins if b is not None))
     return [None if proj is None else rasterize_tiles(
         proj, band_h, W,
         torch.as_tensor(settings.bg_color, dtype=torch.float32, device=dev),
@@ -247,7 +249,7 @@ def _band_loss(outs: Sequence[dict], camera: Camera, devices: Sequence,
     """The banded L1 + D-SSIM of one camera's bands (with its affine
     exposure applied to each band first): (total, parts) on the device of
     the first of this process's ranks."""
-    with record_function("3dgs:loss"):
+    with profiling.stage("3dgs:loss"):
         images = [None if o is None else o["image"] for o in outs]
         if exposure is not None:
             images = [None if im is None else
@@ -307,7 +309,7 @@ def _grads(total: torch.Tensor, wrt: list, mesh: M.Mesh, cross: bool,
     does not reach a leaf).  Across processes the leaves at the positions
     `replicated` are held by every process of the mesh: their gradients
     (zeros for None) are added over those processes."""
-    with record_function("3dgs:backward"):
+    with profiling.stage("3dgs:backward"):
         if not cross:
             return list(torch.autograd.grad(total, wrt, allow_unused=True))
         grads = list(torch.autograd.grad(total, wrt + [M.ANCHOR],
@@ -363,6 +365,7 @@ def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
     band_h = _band_height(settings, mesh.tile)
     rows = _render_rows(mesh)
 
+    @profiling.step("render")
     def sharded_render(g: Gaussians, camera: Camera) -> Optional[dict]:
         full = None
         for d in rows:
@@ -370,7 +373,7 @@ def make_sharded_render(settings: RenderSettings, mesh: M.Mesh) -> Callable:
             gs = [g.to(dev) if M.is_local(dev) else None for dev in devices]
             cams = [camera.to(dev) if M.is_local(dev) else None
                     for dev in devices]
-            with record_function("3dgs:projection"):
+            with profiling.stage("3dgs:projection"):
                 projs = _project(gs, cams, settings, devices)
             outs = _render_bands(projs, settings, band_h, devices)
             out = _row_image(outs, devices, settings.ring)
@@ -401,6 +404,7 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
     W = settings.image_width
     cross = M.spans_processes(mesh.devices)
 
+    @profiling.step("train_step")
     def step(state: TrainState, cameras: Sequence[Camera],
              cam_idx: Optional[Sequence[int]] = None,
              sh_degree: Optional[int] = None):
@@ -438,7 +442,7 @@ def make_sharded_train_step(config: TrainingConfig, settings: RenderSettings,
             gs = [g.to(dev) if h else None for dev, h in zip(devices, here)]
             cams = [camera.to(dev) if h else None
                     for dev, h in zip(devices, here)]
-            with record_function("3dgs:projection"):
+            with profiling.stage("3dgs:projection"):
                 projs = _project(gs, cams, st, devices)
                 projs = [None if p is None else
                          p._replace(means2d=p.means2d + probe.to(dev))
@@ -694,6 +698,7 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
     mine = mesh.local_ranks()
     cross = M.spans_processes(mesh.devices)
 
+    @profiling.step("train_step")
     def step(state: GaussShardedState, cameras: Sequence[Camera],
              cam_idx: Optional[Sequence[int]] = None,
              sh_degree: Optional[int] = None):
@@ -733,7 +738,7 @@ def make_gauss_sharded_train_step(config: TrainingConfig,
                 counters += [None] * n_tile
                 continue
             slices = []
-            with record_function("3dgs:projection"):
+            with profiling.stage("3dgs:projection"):
                 for t, dev in enumerate(devices):
                     r = _rank_of(mesh, d, t)
                     if not M.is_local(dev):
@@ -823,11 +828,12 @@ def make_gauss_sharded_render(settings: RenderSettings,
     kw = _projection_kw(settings)
     rows = _render_rows(mesh)
 
+    @profiling.step("render")
     def gauss_sharded_render(shards: Sequence[Gaussians],
                              camera: Camera) -> Optional[dict]:
         if not rows:
             return None
-        with record_function("3dgs:projection"):
+        with profiling.stage("3dgs:projection"):
             local = [None if g is None else
                      project_gaussians(g, camera.to(dev), **kw)
                      for g, dev in zip(shards, mesh.devices)]
@@ -837,7 +843,7 @@ def make_gauss_sharded_render(settings: RenderSettings,
         full = None
         for d in rows:
             devices = mesh.tile_devices(d)
-            with record_function("3dgs:projection"):
+            with profiling.stage("3dgs:projection"):
                 # every block is here: concatenate on the local ranks
                 here = iter(M.all_gather(
                     blocks, [dev for dev in devices if M.is_local(dev)]))

@@ -29,7 +29,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import TrainingConfig
 from ..core.camera import Camera
@@ -40,6 +39,7 @@ from ..core.loss import gaussian_loss, ssim
 from ..core.sh import rgb_to_sh_dc
 from ..data.dataset import load_dataset
 from ..ops.renderer import RenderSettings, render
+from ..utils import profiling
 from ..utils.metrics import psnr
 from . import density
 from .exposure import apply_exposure, init_exposure
@@ -87,6 +87,7 @@ def scale_position_lr(config: TrainingConfig,
         scale_position_lr_by_extent=False)
 
 
+@profiling.step("train_step")
 def train_step(state: TrainState, camera: Camera, config: TrainingConfig,
                settings: RenderSettings, cam_idx: int = 0,
                sh_degree: Optional[int] = None
@@ -111,7 +112,7 @@ def train_step(state: TrainState, camera: Camera, config: TrainingConfig,
 
     out = render(g0.with_params(params), camera, settings,
                  means2d_probe=probe)
-    with record_function("3dgs:loss"):
+    with profiling.stage("3dgs:loss"):
         image = out["image"]
         if exposure is not None:
             image = apply_exposure(exposure[cam_idx], image)
@@ -119,7 +120,7 @@ def train_step(state: TrainState, camera: Camera, config: TrainingConfig,
     wrt = list(params.values()) + [probe]
     if exposure is not None:
         wrt.append(exposure)
-    with record_function("3dgs:backward"):
+    with profiling.stage("3dgs:backward"):
         grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
     new_state = apply_gradients(state, params, probe, exposure, grads_all,
                                 config, settings, out["radii"].detach(),
@@ -156,7 +157,7 @@ def apply_gradients(state: TrainState, params: Dict[str, torch.Tensor],
     densify statistics with the forward pass's `radii` and `visible`."""
     g0 = state.gaussians
     zero_if_none = lambda gr, ref: torch.zeros_like(ref) if gr is None else gr
-    with record_function("3dgs:adam"):
+    with profiling.stage("3dgs:adam"):
         # Dead slots must not drift: zero their gradients (their Adam
         # moments are zeroed when the slot dies, so their updates stay
         # exactly 0).
@@ -174,7 +175,7 @@ def apply_gradients(state: TrainState, params: Dict[str, torch.Tensor],
                 {"exposure": zero_if_none(grads_all[-1], exposure)}, exp_opt,
                 {"exposure": config.exposure_lr})
             new_exposure = upd["exposure"]
-    with record_function("3dgs:statistics"):
+    with profiling.stage("3dgs:statistics"):
         stat = density.densify_stat_norm(config, grads["xyz"], vs_grads,
                                          settings.image_height,
                                          settings.image_width)

@@ -84,6 +84,7 @@ from mini3dgs_tpu_torch.parallel import mesh as M  # noqa: E402
 from mini3dgs_tpu_torch.parallel import sharded  # noqa: E402
 from mini3dgs_tpu_torch.train import checkpoint  # noqa: E402
 from mini3dgs_tpu_torch.train import trainer  # noqa: E402
+from mini3dgs_tpu_torch.utils import profiling  # noqa: E402
 
 
 # ---- the setup ------------------------------------------------------------
@@ -184,27 +185,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def launches() -> tuple:
-    return (RC.raster_fwd.launches, RC.raster_bwd.launches,
-            RC.raster_fwd.launches_t0, RC.raster_bwd.launches_t0)
+LAUNCHES = ("raster_fwd.launches", "raster_bwd.launches",
+            "raster_fwd.launches_t0", "raster_bwd.launches_t0")
 
 
 def run_step(step, args, device, steps: int) -> dict:
     """step(*args) once for the result, with the kernels' launches and the
-    bytes it put through torch.distributed; then `steps` more times for
-    the host ms, and the host ms of those spent in torch.distributed (each
-    from the same inputs)."""
-    before, sent = launches(), dict(M.TRAFFIC)
+    bytes it put through torch.distributed (the stage recorder's counters
+    of that step); then `steps` more times for the host ms, and the host
+    ms of those spent in torch.distributed (each from the same inputs)."""
     _sync(device)
-    t0 = time.perf_counter()
-    out, metrics = step(*args)
-    _sync(device)
-    first_ms = (time.perf_counter() - t0) * 1e3
+    with profiling.recording(device) as rec:
+        t0 = time.perf_counter()
+        out, metrics = step(*args)
+        _sync(device)
+        first_ms = (time.perf_counter() - t0) * 1e3
+    c = rec.counters(1)
     res = {"out": out, "metrics": metrics,
            "loss": float(metrics["total_loss"]),
-           "launches": [a - b for a, b in zip(launches(), before)],
-           "bytes": M.TRAFFIC["bytes"] - sent["bytes"],
-           "calls": M.TRAFFIC["calls"] - sent["calls"],
+           "launches": [int(c[k]) for k in LAUNCHES],
+           "bytes": int(c["traffic.bytes"]), "calls": int(c["traffic.calls"]),
            "first_ms": first_ms, "step_ms": [], "exchange_ms": []}
     for _ in range(steps):
         _sync(device)

@@ -29,6 +29,13 @@ read the same way, each with the raster
 kernels it launches; what the device runs outside every range is autograd's
 backward of everything but the raster.
 
+Last, as many steps again with no profiler under the stage recorder
+(`utils/profiling.recording`): each stage's device wall a step, the
+backward's too, which the ranges above cannot give, and the recorder's
+counters a step: `instances`, the raster launches (`raster_fwd.launches`,
+`raster_fwd.launches_t0`, ...) and the mesh's exchange traffic
+(`traffic.*`, the ring's bytes and calls).
+
 Prints one JSON object that names the card and its power limit; --output
 also writes it to a file.
 
@@ -57,6 +64,7 @@ from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render  # noqa: E402
 from mini3dgs_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mini3dgs_tpu_torch.parallel.sharded import make_sharded_train_step  # noqa: E402
 from mini3dgs_tpu_torch.train import trainer  # noqa: E402
+from mini3dgs_tpu_torch.utils.profiling import recording  # noqa: E402
 
 SIZE, N, CAPACITY, TILE = 800, 100_000, 2 ** 17, 32
 RANGES = ("projection", "binning", "pack", "raster_fwd", "epilogue", "loss",
@@ -278,6 +286,12 @@ def main(argv=None) -> int:
         profiled_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     traced = (analyse_sharded if sharded else analyse)(prof.events(),
                                                        args.steps)
+    with recording(dev) as rec:
+        for _ in range(args.steps):
+            state, metrics = step(state)
+    recorded = {"stage_wall_ms": {n: r["wall_ms"] for n, r in
+                                  rec.summary(args.steps).items()},
+                "counters": rec.counters(args.steps)}
     busy = traced["device_busy_ms_per_step"]
     result = {
         "card": smi, "device": torch.cuda.get_device_name(0),
@@ -295,7 +309,7 @@ def main(argv=None) -> int:
             "of_slowest": busy / max(step_ms),
             "of_median": busy / float(np.median(step_ms)),
             "of_fastest": busy / min(step_ms)},
-        **traced}
+        **traced, "recorder": recorded}
     if args.output is not None:
         args.output.parent.mkdir(parents=True, exist_ok=True)
         args.output.write_text(json.dumps(result, indent=1))
