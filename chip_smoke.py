@@ -9,7 +9,9 @@ each against its plain PyTorch version on the card (edge cases at tile 16
 and 32, a ragged image edge, the kernels' own staging and per-patch reject
 cases at both launch shapes, and the golden rasterizer and its autograd on
 a small scene), checks that binning on the card equals binning on the CPU,
-renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
+holds the projection kernel P1 (csrc/project_fwd.cu) against the plain
+projection chain on that scene in every build (then on each block of the
+ring render below) and times it against its byte bound, renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
 `render`, runs the novel-view entry point, takes six full-width train
 steps (then one densify and one prune step) on that scene, and runs the
 training entry point.  Then the ring route (parallel/ring.py) with five
@@ -83,6 +85,7 @@ import struct
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from pathlib import Path
 from unittest import mock
@@ -182,6 +185,74 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+# Bytes the projection kernel P1 (csrc/project_fwd.cu) reads and writes a
+# Gaussian: xyz 12, log-scale 12, quaternion 16, opacity 4, features_dc 12,
+# features_rest 180, alive 1 in; means 8, conic 12, depth 4, radius 4,
+# visible 1, colour 12, opacity 4, the two extents 8 out.
+PROJECT_FWD_BYTES = 290
+# P1's fields that the cull and binning read, held bitwise against the chain.
+PROJECTION_EXACT = ("visible", "depth", "radius", "ext_x", "ext_y")
+PROJECTION_RTOL = 1e-6  # every other field, relative
+
+
+def norm_order_matches(rotation: torch.Tensor) -> bool:
+    """Whether this torch's `linalg.norm` of the quaternions sums their
+    squares as P1 does (`quat_norm`: (w^2 + y^2) + (x^2 + z^2), the order
+    of PyTorch's reduce kernel over a row of 4 in torch 2.11).  The radius,
+    the extents and the cull follow from this norm."""
+    w, x, y, z = rotation.unbind(-1)
+    p1 = torch.sqrt((w * w + y * y) + (x * x + z * z))
+    return torch.equal(torch.linalg.norm(rotation, dim=-1), p1)
+
+
+def gate_projection(got, want, rotation: torch.Tensor, name: str) -> float:
+    """P1's `Projected` against the plain chain's on the same rows and the
+    same card: every field at the chain's dtype, shape and strides;
+    `visible`, `depth`, `radius` and both extents bitwise, every other field
+    within PROJECTION_RTOL relative (the SH colour reads the camera centre,
+    which the chain takes from a cuBLAS product whose order of sums P1
+    cannot see).  Where this torch sums the quaternion norm in another order
+    than P1 (`norm_order_matches`), which a torch release may do, `radius`
+    and the extents are held within PROJECTION_RTOL instead and `visible`
+    may differ only in rows whose radius differs; a warning says so.
+    Raises on a mismatch; returns the largest relative error of the fields
+    held within PROJECTION_RTOL."""
+    exact = norm_order_matches(rotation)
+    if not exact:
+        warnings.warn(f"{name}: this torch sums the quaternion norm in "
+                      "another order than P1; radius and extents held within "
+                      f"{PROJECTION_RTOL} relative, not bitwise")
+    bits = lambda t: t.contiguous().view(torch.int32)
+    worst = 0.0
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a.dtype, a.shape, a.stride()) != (b.dtype, b.shape, b.stride()):
+            raise AssertionError(f"{name}: {f} is {a.dtype} {tuple(a.shape)} "
+                                 f"{a.stride()}, the chain's {b.dtype} "
+                                 f"{tuple(b.shape)} {b.stride()}")
+        if f == "visible":
+            moved = a != b
+            if not exact:
+                moved &= bits(got.radius) == bits(want.radius)
+            if bool(moved.any()):
+                raise AssertionError(f"{name}: visible differs in "
+                                     f"{int(moved.sum())} rows")
+        elif f == "depth" or (exact and f in PROJECTION_EXACT):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"{name}: {f} is not bitwise the "
+                                     "chain's")
+        else:
+            same = (a == b) | (a.isnan() & b.isnan())
+            rel = torch.where(same, torch.zeros_like(a),
+                              (a - b).abs() / b.abs())
+            err = float(rel.max()) if rel.numel() else 0.0
+            if not err <= PROJECTION_RTOL:
+                raise AssertionError(f"{name}: {f} off by {err:.3g} "
+                                     "relative")
+            worst = max(worst, err)
+    return worst
 
 
 ROWS_REL_L2 = 1e-4   # gate_rows' bound on each row's rel-L2
@@ -2186,6 +2257,7 @@ def main() -> int:
     from mini3dgs_tpu_torch.config import TrainingConfig
     from mini3dgs_tpu_torch.core.gaussians import scene_extent_of
     from mini3dgs_tpu_torch.core.loss import gaussian_loss
+    from mini3dgs_tpu_torch.ops import projection as pj
     from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops import raster_ref
     from mini3dgs_tpu_torch.ops.binning import bin_gaussians
@@ -2466,6 +2538,34 @@ def main() -> int:
           f"n_live {b_gpu.n_live}, per-tile lists identical on card and CPU",
           flush=True)
 
+    # ---- 4b. the projection kernel P1 against the plain chain ---------
+    # Phase 4's pool (the render slice's rows) from the bench view, through
+    # every build of P1 with and without antialias; then the SH-3 build's
+    # time against the chain's and against its byte bound at this pool.
+    p1_err = 0.0
+    with torch.no_grad():
+        for mode, deg in (("dc_sigmoid", 0), ("sh", 0), ("sh", 1),
+                          ("sh", 2), ("sh", 3)):
+            for aa in (False, True):
+                kw = dict(color_mode=mode, sh_degree=deg, antialias=aa)
+                p1_err = max(p1_err, gate_projection(
+                    pj.project_fwd(g, bench_cam, **kw),
+                    pj.project_gaussians_plain(g, bench_cam, **kw),
+                    g.rotation, f"P1 {mode} {deg} antialias {aa}"))
+        kw = dict(color_mode="sh", sh_degree=3)
+        p1_ms = cuda_ms(lambda: pj.project_fwd(g, bench_cam, **kw), inner=4)
+        p1_plain_ms = cuda_ms(
+            lambda: pj.project_gaussians_plain(g, bench_cam, **kw))
+    p1_rows = g.capacity
+    p1_bound = PROJECT_FWD_BYTES * p1_rows / PEAK_BYTES_PER_S * 1e3
+    p1_exact = norm_order_matches(g.rotation)
+    print(f"[4b projection kernel P1 vs plain] pool {p1_rows}, "
+          f"{VIEW_SIZE}^2, 5 builds x antialias: visible, depth, radius, "
+          f"extents {'bitwise' if p1_exact else 'within 1e-6 (norm order)'}"
+          f", the rest within {p1_err:.3g} relative; SH 3: kernel "
+          f"{p1_ms:.4f} ms, plain {p1_plain_ms:.3f} ms, bound "
+          f"{p1_bound:.4f} ms (bytes)", flush=True)
+
     # ---- 5. the render slice: two 800^2 views through render ----------
     settings = RenderSettings(image_height=VIEW_SIZE, image_width=VIEW_SIZE,
                               bg_color=(1.0, 1.0, 1.0), tile_size=32,
@@ -2477,6 +2577,7 @@ def main() -> int:
         render(g, cams[0], settings)  # warm-up (allocator, kernel load)
         torch.cuda.synchronize()
         rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+        pj.project_fwd.launches = 0
         outs, render_ms = [], []
         for cam_v in cams:
             t0 = time.perf_counter()
@@ -2484,12 +2585,17 @@ def main() -> int:
             torch.cuda.synchronize()
             render_ms.append((time.perf_counter() - t0) * 1e3)
         render_launches = rc.raster_fwd.launches
+        p1_render_launches = pj.project_fwd.launches
     if render_launches != len(cams) or rc.raster_bwd.launches != 0:
         raise AssertionError(f"render launched the forward kernel "
                              f"{render_launches} times for {len(cams)} views")
+    if p1_render_launches != len(cams):
+        raise AssertionError(f"render launched P1 {p1_render_launches} "
+                             f"times for {len(cams)} views")
     print(f"[5 render slice] {len(cams)} views {VIEW_SIZE}x{VIEW_SIZE}, "
           f"{N_GAUSSIANS} Gaussians (pool {CAPACITY}), SH 3, tile 32, white "
-          f"bg: forward launches {render_launches}", flush=True)
+          f"bg: forward launches {render_launches}, P1 launches "
+          f"{p1_render_launches}", flush=True)
     fwd_ms, fwd_plain_ms, fwd_err = [], [], 0.0
     tiles_x = -(-VIEW_SIZE // 32)
     for i, (cam_v, out) in enumerate(zip(cams, outs)):
@@ -2574,6 +2680,7 @@ def main() -> int:
     state = trainer.create_train_state(g0, config)
     torch.cuda.synchronize()
     rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    pj.project_fwd.launches = 0
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2586,6 +2693,11 @@ def main() -> int:
     if train_launches != (TRAIN_STEPS, TRAIN_STEPS):
         raise AssertionError(f"{TRAIN_STEPS} train steps launched the "
                              f"kernels {train_launches} times")
+    # A train step needs the projection's graph: the chain, never P1.
+    p1_train_launches = pj.project_fwd.launches
+    if p1_train_launches != 0:
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched P1 "
+                             f"{p1_train_launches} times")
     dead = ~g0.alive
     for k, v in state.gaussians.params().items():
         for what, t in (("parameter", v), ("Adam mu", state.opt_state.mu[k]),
@@ -2713,12 +2825,14 @@ def main() -> int:
         ring_render(g_ring, bench_cam)  # warm-up
         torch.cuda.synchronize()
         zero_counts()
+        pj.project_fwd.launches = 0
         ring_ms = []
         t0 = time.perf_counter()
         out = ring_render(g_ring, bench_cam)
         torch.cuda.synchronize()
         ring_ms.append((time.perf_counter() - t0) * 1e3)
         ring_render_launches = counts()
+        p1_ring_launches = pj.project_fwd.launches
         for _ in range(2):
             t0 = time.perf_counter()
             ring_render(g_ring, bench_cam)
@@ -2727,10 +2841,30 @@ def main() -> int:
     if ring_render_launches != (0, 0, n_rk * n_rk, 0):
         raise AssertionError(f"the ring render launched {ring_render_launches}"
                              f", not {n_rk * n_rk} forward kernels with t0")
+    if p1_ring_launches != n_rk:
+        raise AssertionError(f"the ring render launched P1 "
+                             f"{p1_ring_launches} times, not once a rank")
+    # P1 on the slices the ring render projects, one a rank: a block of
+    # 26,215 rows, so each block but the first starts off 16 bytes.
+    r_block = RING_CAPACITY // n_rk
+    misaligned = 0
+    kw = dict(color_mode="sh", sh_degree=3)
+    with torch.no_grad():
+        for r in range(n_rk):
+            part = g_ring.slots(r * r_block, (r + 1) * r_block)
+            misaligned += part.features_rest.data_ptr() % 16 != 0
+            p1_err = max(p1_err, gate_projection(
+                pj.project_fwd(part, bench_cam, **kw),
+                pj.project_gaussians_plain(part, bench_cam, **kw),
+                part.rotation, f"P1 ring block {r}"))
+    if misaligned == 0:
+        raise AssertionError("no ring block starts off 16 bytes")
     print(f"[9 ring render] {VIEW_SIZE}^2 tile 32, {N_GAUSSIANS} Gaussians "
           f"(pool {RING_CAPACITY}), SH 3, {n_rk} ranks on {dev}: launches "
           f"(fwd, bwd, fwd t0, bwd t0) {ring_render_launches}, render ms "
-          f"{' '.join(f'{t:.2f}' for t in ring_ms)}", flush=True)
+          f"{' '.join(f'{t:.2f}' for t in ring_ms)}; P1 launches "
+          f"{p1_ring_launches}, on each rank's block ({misaligned} off 16 "
+          f"bytes) as the chain", flush=True)
     raw = lambda o: o["depth"] * (o["alpha"] + 1e-6)
     d_scale = float(raw(single).abs().max())
     ring_render_err = max(
@@ -3329,7 +3463,17 @@ def main() -> int:
                             p18["bwd_t0_err"], k19["bwd_t0_err"]),
          "ms": t4["ms"],
          "ms_slowest_launch": t4["worst"], "plain_ms": t4["plain"],
-         "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None}],
+         "bound_ms": t4["bound"], "bound_by": t4["by"], "library_ms": None},
+        # Times and bound at phase 4's pool, SH 3; the error is the largest
+        # relative one of the fields not held bitwise.
+        {"name": "project_fwd", "route": "cuda",
+         "source": "mini3dgs_tpu_torch/csrc/project_fwd.cu",
+         "replaces": None,
+         "launches": p1_train_launches, "launches_render": p1_render_launches,
+         "launches_ring_render": p1_ring_launches,
+         "exact_fields_bitwise": p1_exact, "max_rel_err": p1_err,
+         "rows": p1_rows, "ms": p1_ms, "plain_ms": p1_plain_ms,
+         "bound_ms": p1_bound, "bound_by": "bytes", "library_ms": None}],
         "ring": {"ranks": n_rk, "render_ms": ring_ms, "step_ms": r_ms,
                  "render_err": ring_render_err,
                  "grad_rel_l2": ring_grad_err},

@@ -7,6 +7,15 @@ Sigma_2D = J Sigma_cam J^T + 1e-6 I, conic = Sigma_2D^-1, radius =
 3*sqrt(lambda_max) clamped, and the cull predicate Z>0, -r<=x<W+r,
 -r<=y<H+r, r>0.  The 3x3 products are written out per component in float32
 (no matmul), so no TF32 path can touch them on the GPU.
+
+`project_gaussians` takes one of two routes by what it is given.  CUDA
+tensors of which no autograd graph is needed (grad mode off, or no
+parameter or camera tensor requires grad) go through `project_fwd`, one
+launch of the hand-written kernel `csrc/project_fwd.cu`: the viewer, the
+trainer's validation and evaluation renders, renders under `no_grad`.
+Everything else (CPU tensors; a train step's projection on the card) runs
+`project_gaussians_plain`, the differentiable chain of PyTorch ops, which
+the kernel is held against on the card.
 """
 
 from __future__ import annotations
@@ -18,8 +27,15 @@ import torch
 
 from ..core import sh as sh_lib
 from ..core.camera import Camera
-from ..core.gaussians import Gaussians
+from ..core.gaussians import SH_REST, Gaussians
 from ..core.transforms import quat_to_rotmat_components
+from ..utils import profiling
+from .raster_ref import W_EPS
+
+# s >= dx^2/Sigma_xx, so |dx| > sqrt(2 ln(1/W_EPS) * a) means w < W_EPS;
+# the extents add 1 px for float rounding of the sqrt and the raster's
+# quadratic.
+CULL_SIGMA = math.sqrt(2.0 * math.log(1.0 / W_EPS))
 
 
 class Projected(NamedTuple):
@@ -40,11 +56,41 @@ def _dot3(u, v):
     return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
 
 
+def needs_graph(g: Gaussians, camera: Camera) -> bool:
+    """Whether the projection of `g` through `camera` has to record an
+    autograd graph: grad mode is on and a parameter or camera tensor
+    requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    tensors = (*g.params().values(), camera.view_matrix, camera.FoVx,
+               camera.FoVy)
+    return any(t.requires_grad for t in tensors)
+
+
 def project_gaussians(g: Gaussians, camera: Camera, *,
                       radius_min: float = 0.01, radius_max: float = 50.0,
                       color_mode: str = "dc_sigmoid", sh_degree: int = 0,
                       scale_modifier: float = 1.0,
                       antialias: bool = False) -> Projected:
+    """The projected rows of every slot of `g`.  CUDA tensors that need no
+    graph launch the kernel (`project_fwd`, which raises on what it does
+    not take); CPU tensors and graphs run `project_gaussians_plain`."""
+    kw = dict(radius_min=radius_min, radius_max=radius_max,
+              color_mode=color_mode, sh_degree=sh_degree,
+              scale_modifier=scale_modifier, antialias=antialias)
+    if g.xyz.device.type == "cuda" and not needs_graph(g, camera):
+        return project_fwd(g, camera, **kw)
+    return project_gaussians_plain(g, camera, **kw)
+
+
+def project_gaussians_plain(g: Gaussians, camera: Camera, *,
+                            radius_min: float = 0.01,
+                            radius_max: float = 50.0,
+                            color_mode: str = "dc_sigmoid",
+                            sh_degree: int = 0, scale_modifier: float = 1.0,
+                            antialias: bool = False) -> Projected:
+    """The projection as a chain of PyTorch ops, on either device and
+    differentiable."""
     W, H = camera.width, camera.height
     fx = 0.5 * W / torch.tan(camera.FoVx * 0.5)
     fy = 0.5 * H / torch.tan(camera.FoVy * 0.5)
@@ -127,11 +173,103 @@ def project_gaussians(g: Gaussians, camera: Camera, *,
 
     opacity = torch.sigmoid(g.opacity[:, 0]) * comp
 
-    # s >= dx^2/Sigma_xx, so |dx| > sqrt(2 ln(1/W_EPS) * a) means w < W_EPS;
-    # +1 px absorbs float rounding of the sqrt and the kernel's quadratic.
-    cull_sigma = math.sqrt(2.0 * math.log(1.0 / 1e-5))
-    ext_x = cull_sigma * torch.sqrt(torch.clamp(a, min=0.0)) + 1.0
-    ext_y = cull_sigma * torch.sqrt(torch.clamp(c, min=0.0)) + 1.0
+    ext_x = CULL_SIGMA * torch.sqrt(torch.clamp(a, min=0.0)) + 1.0
+    ext_y = CULL_SIGMA * torch.sqrt(torch.clamp(c, min=0.0)) + 1.0
     return Projected(means2d=means2d, conic=conic, depth=Z, radius=radius,
                      visible=visible, color=color, opacity=opacity,
                      ext_x=ext_x, ext_y=ext_y)
+
+
+class _ProjectFwd(torch.autograd.Function):
+    """The kernel's launch inside an op of its own, which takes and gives no
+    tensor.  torch.profiler links a kernel to the op that launched it; a
+    `record_function` range such as `3dgs:projection` is no op, so a kernel
+    launched from Python straight under it would count towards no stage."""
+
+    @staticmethod
+    def forward(ctx, launch):
+        return launch()
+
+
+def _check_fwd_args(g: Gaussians, camera: Camera) -> torch.device:
+    """Raise on what the kernel does not take; returns the device."""
+    C = g.xyz.shape[0]
+    shapes = dict(xyz=(C, 3), features_dc=(C, 1, 3),
+                  features_rest=(C, SH_REST, 3), scaling=(C, 3),
+                  rotation=(C, 4), opacity=(C, 1))
+    tensors = {k: getattr(g, k) for k in shapes}
+    for k, shape in shapes.items():
+        v = tensors[k]
+        if v.dtype != torch.float32 or tuple(v.shape) != shape:
+            raise ValueError(f"{k} must be float32 {shape}, got {v.dtype} "
+                             f"{tuple(v.shape)}")
+    if g.alive.dtype != torch.bool or tuple(g.alive.shape) != (C,):
+        raise ValueError(f"alive must be bool ({C},), got {g.alive.dtype} "
+                         f"{tuple(g.alive.shape)}")
+    tensors["alive"] = g.alive
+    cam = dict(view_matrix=(4, 4), FoVx=(), FoVy=())
+    for k, shape in cam.items():
+        v = getattr(camera, k)
+        if v.dtype != torch.float32 or tuple(v.shape) != shape:
+            raise ValueError(f"camera.{k} must be float32 {shape}, got "
+                             f"{v.dtype} {tuple(v.shape)}")
+        tensors[f"camera.{k}"] = v
+    for k, v in tensors.items():
+        if not v.is_contiguous():
+            raise ValueError(f"project_fwd needs contiguous tensors; {k} is "
+                             f"not")
+    devices = {v.device for v in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    device = g.xyz.device
+    if device.type != "cuda":
+        raise ValueError(f"project_fwd runs on CUDA tensors, not {device}")
+    return device
+
+
+def project_fwd(g: Gaussians, camera: Camera, *, radius_min: float = 0.01,
+                radius_max: float = 50.0, color_mode: str = "dc_sigmoid",
+                sh_degree: int = 0, scale_modifier: float = 1.0,
+                antialias: bool = False) -> Projected:
+    """`project_gaussians_plain` in one launch of `csrc/project_fwd.cu`,
+    without an autograd graph: the same `Projected`, field for field, at
+    the same shapes, dtypes and layout.  CUDA tensors only; raises on any
+    other input, and counts each launch in `project_fwd.launches` and in the
+    active recording's counter `projection_kernel`."""
+    if color_mode not in ("dc_sigmoid", "sh"):
+        raise ValueError(f"unknown color_mode {color_mode!r}")
+    device = _check_fwd_args(g, camera)
+    # eval_sh reads degrees below 1 as 0 and above 3 as 3.
+    degree = -1 if color_mode == "dc_sigmoid" else min(max(sh_degree, 0), 3)
+    C = g.xyz.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
+    out = Projected(
+        means2d=torch.empty(C, 2, **f32), conic=torch.empty(C, 3, **f32),
+        depth=torch.empty(C, **f32), radius=torch.empty(C, **f32),
+        visible=torch.empty(C, dtype=torch.bool, device=device),
+        color=torch.empty(C, 3, **f32), opacity=torch.empty(C, **f32),
+        ext_x=torch.empty(C, **f32), ext_y=torch.empty(C, **f32))
+    from .raster_cuda import kernel_library
+    lib = kernel_library().lib
+    ptrs = [v.data_ptr() for v in (
+        g.xyz, g.features_dc, g.features_rest, g.scaling, g.rotation,
+        g.opacity, g.alive, camera.view_matrix, camera.FoVx, camera.FoVy)]
+
+    def launch():
+        with torch.cuda.device(device):
+            return lib.project_fwd_launch(
+                *ptrs, C, camera.width, camera.height, degree,
+                int(antialias), scale_modifier, radius_min, radius_max,
+                CULL_SIGMA, *(v.data_ptr() for v in out),
+                torch.cuda.current_stream(device).cuda_stream)
+
+    rc = _ProjectFwd.apply(launch)
+    if rc != 0:
+        raise RuntimeError(f"project_fwd kernel launch failed: CUDA error "
+                           f"{rc}")
+    project_fwd.launches += 1
+    profiling.count("projection_kernel", 1)
+    return out
+
+
+project_fwd.launches = 0

@@ -339,7 +339,7 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
-                       "CUDA raster kernels cannot be built")
+                       "CUDA kernels cannot be built")
 
 
 def kernel_sources(csrc: Path = CSRC_DIR) -> list:
@@ -412,9 +412,16 @@ def kernel_library() -> KernelLibrary:
     lib.raster_bwd_t0_launch.argtypes = head + [ptr] * 7
     lib.raster_fwd_blocks_per_sm.argtypes = [i32, i32]
     lib.raster_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
+    # (10 inputs, n, width, height, sh_degree, antialias, scale_modifier,
+    #  radius_min, radius_max, cull_sigma, 9 outputs, stream)
+    f32 = ctypes.c_float
+    lib.project_fwd_launch.argtypes = ([ptr] * 10 + [ctypes.c_longlong]
+                                       + [i32] * 4 + [f32] * 4
+                                       + [ptr] * 10)
     for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
                lib.raster_bwd_launch, lib.raster_bwd_t0_launch,
-               lib.raster_fwd_blocks_per_sm, lib.raster_bwd_blocks_per_sm):
+               lib.raster_fwd_blocks_per_sm, lib.raster_bwd_blocks_per_sm,
+               lib.project_fwd_launch):
         fn.restype = i32
     return KernelLibrary(lib, path, seconds, log)
 

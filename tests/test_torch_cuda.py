@@ -1,5 +1,5 @@
-"""The CUDA raster kernels against their plain PyTorch versions, on the
-card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the raster kernels B1-B4 and the projection kernel.
 
 Marked `cuda`: these tests skip on a host without a CUDA device (a CUDA
 kernel has no CPU mode).  This file imports no JAX, so on a GPU host that
@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from mini3dgs_tpu_torch.core.camera import Camera
+from mini3dgs_tpu_torch.core.gaussians import Gaussians
+from mini3dgs_tpu_torch.ops import projection as pj
 from mini3dgs_tpu_torch.ops import raster_cuda as rc
 
 pytestmark = pytest.mark.cuda
@@ -238,3 +241,139 @@ def test_forward_kernel_patch_cases_on_card(cuda, tile_size, with_t0,
     chip_smoke.check_fwd_patch_cases(rc, tile_size, cuda, with_t0, rows)
     assert (rc.raster_fwd.launches, rc.raster_fwd.launches_t0) == (
         before[0] + 2 * (not with_t0), before[1] + 2 * with_t0)
+
+
+def _projection_scene(device, seed=0):
+    """A pool of 3,501 slots (the last block of 128 ragged) and a tilted
+    160 x 120 camera, with rows that reach every branch of the projection:
+    dead slots, points behind the camera, points at 0 < Z <= 1e-6 on the
+    optical axis, centres far off the image, radii at both clamps (log
+    scales of -14 and +2), near-degenerate scales (one axis at -20; all
+    three at -25, where |det| < 1e-12), and quaternions of every norm,
+    zero included."""
+    rng = np.random.default_rng(seed)
+    a = 0.3
+    R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                  [-np.sin(a), 0.0, np.cos(a)]])
+    centre = np.array([0.4, -0.2, -4.0])
+    right, up, fwd = R[:, 0], R[:, 1], R[:, 2]
+
+    def at(depth, lateral):
+        return centre + depth[:, None] * fwd + lateral[:, :1] * right \
+            + lateral[:, 1:] * up
+
+    bulk = rng.uniform(0.5, 8.0, 3000)
+    behind = rng.uniform(-5.0, -0.01, 200)
+    near = np.linspace(1e-7, 1e-6, 64)
+    off = rng.uniform(1.0, 8.0, 237)
+    xyz = np.concatenate([
+        at(bulk, rng.uniform(-1.2, 1.2, (3000, 2)) * bulk[:, None]),
+        at(behind, rng.uniform(-2.0, 2.0, (200, 2))),
+        at(near, np.zeros((64, 2))),
+        at(off, rng.uniform(5.0, 50.0, (237, 2)) * off[:, None]
+           * rng.choice([-1.0, 1.0], (237, 2)))]).astype(np.float32)
+    n = xyz.shape[0]
+    scaling = rng.normal(-3.0, 1.0, (n, 3))
+    rows = rng.permutation(n)
+    scaling[rows[:100]] = -14.0
+    scaling[rows[100:200]] = 2.0
+    scaling[rows[200:300], 0] = -20.0
+    scaling[rows[300:320]] = -25.0
+    rotation = rng.normal(0.0, 1.0, (n, 4))
+    rotation[rows[320:400]] *= 1e3
+    rotation[rows[400:480]] *= 1e-3
+    rotation[rows[480:490]] = 0.0
+    f32 = dict(dtype=torch.float32, device=device)
+    as_t = lambda v: torch.as_tensor(np.asarray(v, np.float32), **f32)
+    g = Gaussians(
+        xyz=as_t(xyz), features_dc=as_t(rng.uniform(-0.5, 0.5, (n, 1, 3))),
+        features_rest=as_t(rng.normal(0.0, 0.05, (n, 15, 3))),
+        scaling=as_t(scaling), rotation=as_t(rotation),
+        opacity=as_t(rng.normal(0.0, 2.0, (n, 1))),
+        alive=torch.as_tensor(rng.random(n) > 0.1, device=device))
+    camera = Camera.create(0, R, centre, 0.9, 0.7, 160, 120, device=device)
+    return g, camera
+
+
+def _assert_projection_matches(got, want, rotation):
+    """chip_smoke.py's `gate_projection`: every field at the chain's dtype,
+    shape and strides; `visible`, `depth`, `radius` and both extents
+    bitwise; every other field within 1e-6 relative (the SH colour reads
+    the camera centre, which the chain takes from a cuBLAS product whose
+    order of sums the kernel cannot see).  The bitwise fields follow from
+    the quaternion norm, whose order of sums the kernel copies from this
+    torch's reduce kernel: under a torch that sums it in another order the
+    gate holds radius and extents within 1e-6 relative and warns."""
+    import chip_smoke
+    chip_smoke.gate_projection(got, want, rotation, "P1")
+
+
+@pytest.mark.parametrize("options", ["default", "other"])
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("color_mode,sh_degree", [
+    ("dc_sigmoid", 0), ("sh", 0), ("sh", 1), ("sh", 2), ("sh", 3)])
+def test_projection_kernel_matches_plain_on_card(cuda, color_mode,
+                                                 sh_degree, antialias,
+                                                 options):
+    """One launch of `project_fwd` (through `project_gaussians`, under
+    no_grad) against the plain chain on the same card."""
+    g, camera = _projection_scene(cuda)
+    kw = dict(color_mode=color_mode, sh_degree=sh_degree,
+              antialias=antialias)
+    if options == "other":
+        kw.update(scale_modifier=1.3, radius_min=2.0, radius_max=20.0)
+    with torch.no_grad():
+        before = pj.project_fwd.launches
+        got = pj.project_gaussians(g, camera, **kw)
+        assert pj.project_fwd.launches == before + 1
+        want = pj.project_gaussians_plain(g, camera, **kw)
+    torch.cuda.synchronize()
+    z = want.depth
+    assert bool(((z > 0) & (z <= 1e-6)).any()) and bool((z < 0).any())
+    if options == "other" or not antialias:  # the dilation lifts r past 0.01
+        assert bool((want.radius == kw.get("radius_min", 0.01)).any())
+    assert bool((want.radius == kw.get("radius_max", 50.0)).any())
+    assert 100 < int(want.visible.sum()) < g.capacity - 100
+    _assert_projection_matches(got, want, g.rotation)
+
+
+def test_projection_kernel_on_a_misaligned_slice_on_card(cuda):
+    """A pool cut at slot 3 (features_rest no longer starts on 16 bytes,
+    so the kernel stages it with 4-byte loads), as the sharded renders cut
+    it, against the plain chain on the same slice."""
+    g, camera = _projection_scene(cuda)
+    part = g.slots(3, g.capacity - 5)
+    assert part.features_rest.data_ptr() % 16
+    kw = dict(color_mode="sh", sh_degree=3)
+    with torch.no_grad():
+        got = pj.project_fwd(part, camera, **kw)
+        want = pj.project_gaussians_plain(part, camera, **kw)
+    _assert_projection_matches(got, want, part.rotation)
+
+
+def test_projection_with_grad_takes_the_chain_on_card(cuda):
+    """Parameters that require grad, with grad mode on, take the autograd
+    chain: no launch, the chain's outputs and gradients bit for bit.  Under
+    no_grad the same parameters launch the kernel."""
+    g, camera = _projection_scene(cuda)
+    kw = dict(color_mode="sh", sh_degree=3, antialias=True)
+
+    def grads(fn):
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in g.params().items()}
+        p = fn(g.with_params(params), camera, **kw)
+        loss = (p.means2d.sum(-1) + p.conic.sum(-1) + p.color.sum(-1)
+                + p.opacity + p.depth)[p.visible].sum()
+        return p, torch.autograd.grad(loss, list(params.values()))
+
+    before = pj.project_fwd.launches
+    got, got_grads = grads(pj.project_gaussians)
+    assert pj.project_fwd.launches == before
+    want, want_grads = grads(pj.project_gaussians_plain)
+    for a, b in zip((*got, *got_grads), (*want, *want_grads)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+    with torch.no_grad():
+        leaf = g.with_params({k: v.clone().requires_grad_(True)
+                              for k, v in g.params().items()})
+        pj.project_gaussians(leaf, camera, **kw)
+    assert pj.project_fwd.launches == before + 1

@@ -79,3 +79,87 @@ def test_instance_stream_matches_jax_pack():
     assert tb.n_live == n_live and tstream.shape == (10, n_live)
     assert tstream.is_contiguous()
     np.testing.assert_array_equal(t2n(tstream), jstream[:, :n_live])
+
+
+def _pool(device="cpu"):
+    params, alive, cam = convert.flagship_scene_numpy(64, 48, seed=2)
+    return (convert.gaussians_from_numpy(params, alive, device),
+            convert.camera_from_numpy(width=32, height=24, device=device,
+                                      **cam))
+
+
+@pytest.mark.parametrize("grad_mode", [True, False])
+@pytest.mark.parametrize("requires_grad", ["none", "xyz", "features_rest",
+                                           "camera"])
+def test_needs_graph_rule(grad_mode, requires_grad):
+    """A graph is needed exactly when grad mode is on and some parameter or
+    camera tensor requires grad."""
+    g, camera = _pool()
+    if requires_grad == "camera":
+        camera = camera.replace(
+            view_matrix=camera.view_matrix.clone().requires_grad_(True))
+    elif requires_grad != "none":
+        g = g.replace(**{requires_grad: getattr(g, requires_grad).clone()
+                         .requires_grad_(True)})
+    with torch.set_grad_enabled(grad_mode):
+        assert tproj.needs_graph(g, camera) == (
+            grad_mode and requires_grad != "none")
+
+
+@pytest.mark.parametrize("grad_mode", [True, False])
+def test_cpu_tensors_take_the_plain_chain(monkeypatch, grad_mode):
+    """On the CPU `project_gaussians` is `project_gaussians_plain`, with or
+    without a graph, and never reaches the kernel's wrapper."""
+    def no_kernel(*args, **kw):
+        raise AssertionError("the kernel's wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(tproj, "project_fwd", no_kernel)
+    g, camera = _pool()
+    kw = dict(color_mode="sh", sh_degree=3, antialias=True)
+    with torch.set_grad_enabled(grad_mode):
+        got = tproj.project_gaussians(g, camera, **kw)
+    want = tproj.project_gaussians_plain(g, camera, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _bad_inputs(case):
+    """The pool and camera of `_pool` with one thing the kernel does not
+    take, and the message it raises with."""
+    g, camera = _pool()
+    if case == "cpu":
+        return g, camera, {}, "CUDA tensors"
+    if case == "float64":
+        return g.replace(xyz=g.xyz.double()), camera, {}, "xyz must be float32"
+    if case == "rest_rows":
+        return (g.replace(features_rest=g.features_rest[:, :3].contiguous()),
+                camera, {}, "features_rest must be")
+    if case == "alive_dtype":
+        return g.replace(alive=g.alive.float()), camera, {}, "alive must be"
+    if case == "strided":
+        wide = torch.zeros(g.capacity, 6)
+        wide[:, :3] = g.xyz
+        return g.replace(xyz=wide[:, :3]), camera, {}, "contiguous"
+    if case == "camera_dtype":
+        return (g, camera.replace(FoVx=camera.FoVx.double()), {},
+                "camera.FoVx must be float32")
+    if case == "devices":
+        return (g, camera.replace(FoVy=camera.FoVy.to("meta")), {},
+                "several devices")
+    if case == "color_mode":
+        return g, camera, {"color_mode": "rgb"}, "unknown color_mode"
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["cpu", "float64", "rest_rows",
+                                  "alive_dtype", "strided", "camera_dtype",
+                                  "devices", "color_mode"])
+def test_project_fwd_rejects_what_the_kernel_does_not_take(case):
+    """The wrapper checks every input before it loads the library: a CUDA
+    tensor on the kernel's path launches the kernel or raises, and CPU
+    tensors always raise."""
+    g, camera, kw, message = _bad_inputs(case)
+    before = tproj.project_fwd.launches
+    with pytest.raises(ValueError, match=message):
+        tproj.project_fwd(g, camera, **kw)
+    assert tproj.project_fwd.launches == before

@@ -168,8 +168,8 @@ def test_library_name_follows_the_headers(tmp_path):
     shutil.copytree(rc.CSRC_DIR, csrc)
     first = rc.library_path(csrc)
     assert first == rc.library_path() and first.parent == rc.BUILD_DIR
-    assert [p.name for p in rc.kernel_sources(csrc)] == ["raster_bwd.cu",
-                                                          "raster_fwd.cu"]
+    assert [p.name for p in rc.kernel_sources(csrc)] == [
+        "project_fwd.cu", "raster_bwd.cu", "raster_fwd.cu"]
     header = csrc / "raster_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     second = rc.library_path(csrc)

@@ -174,6 +174,17 @@ def test_instances_counter_is_n_live():
     assert rec.counters(steps=1)["instances"] == a["n_live"] + b["n_live"]
 
 
+def test_projection_kernel_counter_only_where_it_launches():
+    """On CPU tensors the projection runs the plain chain: the recording
+    holds no `projection_kernel` count (the card's test holds 1 a render
+    and none in a train step)."""
+    with profiling.recording(device="cpu") as rec:
+        _render()
+        _train_step()
+    assert "projection_kernel" not in rec.counters()
+    assert rec.counters()["instances"] > 0
+
+
 def test_launches_and_traffic_are_differences(monkeypatch):
     monkeypatch.setattr(rc.raster_fwd, "launches", 40)
     monkeypatch.setattr(rc.raster_bwd, "launches_t0", 7)
@@ -254,6 +265,7 @@ def test_syncs_and_walls_on_the_card(card):
             out = render(g, camera, settings)
     assert rec.counters()["instances"] == out["n_live"]
     assert rec.counters()["raster_fwd.launches"] == 1
+    assert rec.counters()["projection_kernel"] == 1
     frame, = [s for s in rec.spans if s.name == "render"]
     stages = [s for s in rec.spans if s.parent is frame]
     assert {s.name for s in stages} == RENDER_STAGES
@@ -262,3 +274,14 @@ def test_syncs_and_walls_on_the_card(card):
     assert sum(map(wall, stages)) <= wall(frame)
     # the host enters each stage before the card reaches it
     assert all(s.t0 <= s.d1 for s in stages)
+
+
+@pytest.mark.cuda
+def test_train_step_keeps_the_projection_chain_on_the_card(card):
+    """A train step needs the projection's graph: it launches no projection
+    kernel, and its recording counts none."""
+    _train_step(card)  # builds the kernels
+    with profiling.recording() as rec:
+        _train_step(card)
+    assert "projection_kernel" not in rec.counters()
+    assert rec.counters()["raster_fwd.launches"] == 1
