@@ -7,7 +7,7 @@ from __future__ import annotations
 import math
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -21,6 +21,8 @@ from harness.windows import (pair_needs, recipe_config, ref_camera,
 
 class Driver:
     """One viewer in a closed loop over the orbit."""
+
+    PASS_STEPS = 240  # a recorder pass's frames, at least
 
     def __init__(self, cell: Cell, seed: int, device: torch.device,
                  out_dir: Path):
@@ -116,6 +118,24 @@ class Driver:
         return ReadContext("render", tr, self.step_s,
                            {"raster_fwd": fwd, "step_ops": ops})
 
+    # -- the stage recorder's passes (harness/recorded.py) ----------------
+    def traced_views(self) -> List[int]:
+        """The views of the frames the profiled sub-window ran: the
+        latest."""
+        k, n = int(self.mix["trace_frames"]), len(self.views.poses)
+        return [(self.frame - k + j) % n for j in range(k)]
+
+    def replay(self, views: List[int]):
+        """A call that renders the views `rounds` times over as the window
+        does, each frame ending in a synchronisation."""
+        def frames(rounds):
+            for _ in range(rounds):
+                for i in views:
+                    self.frame = i
+                    self._frame()
+                    sync(self.device)
+        return frames
+
     def release(self) -> None:
         self.gaussians = None
         self.cams = None
@@ -127,6 +147,23 @@ class Driver:
         p = {k: v.to(dtype) for k, v in self.params.items()}
         return {k: render(p, ref_camera(self.views, k, self.device, dtype),
                           st)[0].float() for k in sorted(self.kept)}
+
+    # -- calibration (calibrate.py) --------------------------------------
+    def check_run(self, seconds: float) -> None:
+        """A window at the cell's own load, long enough to keep every
+        checked frame: what the checked frames need after set-up."""
+        self.window(seconds)
+
+    def controls(self, ref: dict) -> Dict[str, dict]:
+        """The numbers of the control: the reference in the program's
+        place, computed in bfloat16."""
+        low = self.reference(torch.bfloat16)
+        return {"control": check.render_numbers(
+            [low[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)])}
+
+    def calibration(self, ref: dict) -> dict:
+        """Readings of the program beyond the numbers compared: none."""
+        return {}
 
     def scene_line(self) -> str:
         return windows.scene_line(self.params, [ref_camera(self.views, k,

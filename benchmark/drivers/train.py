@@ -30,6 +30,8 @@ ADAM_B1 = 0.9  # the first moment after one step from zero is (1 - b1) g
 class Driver:
     """GaussianTrainer.train from `start_iteration` of the recipe."""
 
+    PASS_STEPS = 40  # a recorder pass's steps, at least
+
     def __init__(self, cell: Cell, seed: int, device: torch.device,
                  out_dir: Path):
         self.cell, self.seed, self.device = cell, int(seed), device
@@ -186,6 +188,26 @@ class Driver:
                            {"raster_fwd": fwd, "raster_bwd": bwd,
                             "step_ops": ops})
 
+    # -- the stage recorder's passes (harness/recorded.py) ----------------
+    def traced_views(self) -> List[int]:
+        """The views of the steps the profiled sub-window ran: the
+        latest."""
+        k = int(self.mix["trace_steps"])
+        return self._draws(self.trainer.iteration - k, k)
+
+    def replay(self, views: List[int]):
+        """A call that takes train steps on the views `rounds` times over,
+        back to back."""
+        t = self.trainer
+        cams = t.train_cameras()
+
+        def steps(rounds):
+            for _ in range(rounds):
+                for i in views:
+                    t.train_step(cams[i], i)
+            sync(self.device)
+        return steps
+
     def release(self) -> None:
         self.trainer = None
         windows.release(self.device)
@@ -223,11 +245,38 @@ class Driver:
     def numbers(self, ref: dict) -> dict:
         return check.train_numbers(self.program, ref)
 
+    # -- calibration (calibrate.py) --------------------------------------
+    def check_run(self, seconds: float) -> None:
+        """Nothing: set-up took the checked steps."""
+
+    def controls(self, ref: dict) -> Dict[str, dict]:
+        """The numbers of the control, the reference in the program's place
+        computed in bfloat16, and of the fault of half the batch left out
+        (the loss's mean taken over the image's top half of rows, in the
+        reference put in the program's place)."""
+        return {"control": check.train_numbers(
+                    self.reference(torch.bfloat16), ref),
+                "half_batch": check.train_numbers(
+                    self.reference(loss_fn=half_batch_loss), ref)}
+
+    def calibration(self, ref: dict) -> dict:
+        """Each leaf's change over the checked steps, the program's over the
+        reference's: a rate that departs shows as its ratio."""
+        return {"change_ratio": {k: self.program["change"][k] / v
+                                 for k, v in ref["change"].items()}}
+
     def scene_line(self) -> str:
         p = {k: v.to(self.device) for k, v in self.params.items()}
         return windows.scene_line(p, [ref_camera(self.views, i, self.device)
                               for i in self.checked_views],
                           ref_settings(self.cfg, self.sh_degree))
+
+
+def half_batch_loss(image, target, lambda_dssim):
+    """The loss over the image's top half of rows only."""
+    from reference.train import photometric_loss
+    h = image.shape[1] // 2
+    return photometric_loss(image[:, :h], target[:, :h], lambda_dssim)
 
 
 def _sh_degree(cfg, done: int) -> int:

@@ -13,7 +13,7 @@ from .profile import Trace
 
 @dataclass
 class ReadContext:
-    kind: str             # the traffic mix's kind: "train" or "render"
+    kind: str             # the traffic mix's kind
     trace: Trace
     step_s: float         # the window's seconds a step or frame
     need: dict            # {"raster_fwd": [least seconds of each traced

@@ -1,11 +1,13 @@
 """The measured package's own stage recorder
 (`mini3dgs_tpu_torch.utils.profiling`), read after the profiled
 sub-window.  The views (or train steps' views) that the sub-window
-profiled are run again with no profiler, in whole rounds of them, `STEPS`
+profiled (the driver's `traced_views()`) are run again with no profiler,
+in whole rounds of them (the driver's `replay(views)`), its `PASS_STEPS`
 frames or steps at least: first under `recording()`, for the stages'
 device walls and the program's counters; then as many under
 `recording(count_syncs=True)`, for the host syncs (the warning hook costs
-host time at each sync, so that pass times nothing).  So the walls and
+host time at each sync, so that pass times nothing; a run on the CPU
+counts none).  So the walls and
 `instances` are of the very views whose kernels the profiled sub-window
 timed, and a wall less their busy time is the card's idle in those
 frames.  The first pass's Chrome trace goes to
@@ -13,10 +15,11 @@ frames.  The first pass's Chrome trace goes to
 `<out_dir>/<cell>.program.json`.
 
 The passes run in a process of their own, set up as the run's is, from
-the cell and the seed: a `torch.profiler` session leaves the process that
-ran it launching slower for seconds after (PERF.md), and the profiled
-sub-window comes first.  A traced run thus sets the cell up twice.  Each
-pass follows a garbage collection and one unrecorded round.
+the cell, the seed and the driver of the folder the cell came from: a
+`torch.profiler` session leaves the process that ran it launching slower
+for seconds after (PERF.md), and the profiled sub-window comes first.
+A traced run thus sets the cell up twice.  Each pass follows a garbage
+collection and one unrecorded round.
 
 What a reader gets from `program(ctx)`: {"steps": the frames or steps of
 a pass, "views": the views replayed (one round), "spans": {span: its
@@ -24,7 +27,7 @@ summary a step}, "counters": {counter: a step}, "sync_sites": {"stage
 file:line": syncs a step} or None where syncs were not counted,
 "launch_us": the passes' host microseconds a launch, "setup_s" and
 "passes_s": the seconds the process took to set up and for the passes};
-or None where the package has no recorder.
+or None where the package has no recorder or the driver no replay.
 
 A reader is handed the ReadContext alone: the driver that made it is
 found among its callers' locals (`run.run` holds it while it calls the
@@ -51,9 +54,6 @@ import torch
 
 from .env import host_launch_us
 from .spec import BENCH_DIR, ROOT, Cell, load_driver
-from .windows import sync
-
-STEPS = {"render": 240, "train": 40}  # a pass's frames or steps, at least
 
 
 def program(ctx) -> Optional[dict]:
@@ -101,29 +101,20 @@ def _driver():
     return None
 
 
-def _traced(drv) -> List[int]:
-    """The views of the frames or steps the profiled sub-window ran: the
-    driver's latest."""
-    mix = drv.cell.traffic
-    if mix["kind"] == "render":
-        k, n = int(mix["trace_frames"]), len(drv.views.poses)
-        return [(drv.frame - k + j) % n for j in range(k)]
-    k = int(mix["trace_steps"])
-    return drv._draws(drv.trainer.iteration - k, k)
-
-
 def _record(drv) -> Optional[dict]:
     """The passes of `drv`'s cell, seed and traced views, in a process of
     their own."""
     from mini3dgs_tpu_torch.utils import profiling
-    kind = drv.cell.traffic["kind"]
-    if kind not in STEPS or not hasattr(profiling, "recording"):
+    if not hasattr(profiling, "recording") or \
+            not callable(getattr(drv, "replay", None)):
         return None
     c = drv.cell
     arg = json.dumps({"name": c.name, "chips": c.chips, "config": c.config,
-                      "traffic": c.traffic, "seed": drv.seed,
-                      "device": str(drv.device), "out_dir": str(drv.out_dir),
-                      "views": _traced(drv), "steps": STEPS[kind]})
+                      "traffic": c.traffic, "bench_dir": str(c.bench_dir),
+                      "seed": drv.seed, "device": str(drv.device),
+                      "out_dir": str(drv.out_dir),
+                      "views": drv.traced_views(),
+                      "steps": drv.PASS_STEPS})
     path = os.pathsep.join([str(BENCH_DIR), str(ROOT),
                             os.environ.get("PYTHONPATH", "")])
     out = subprocess.run([sys.executable, "-m", "harness.recorded", arg],
@@ -135,37 +126,16 @@ def _record(drv) -> Optional[dict]:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def _rounds(drv, views: List[int]):
-    """A call that runs the views `rounds` times over as the window runs
-    them: each frame ending in a synchronisation, train steps back to
-    back."""
-    if drv.cell.traffic["kind"] == "render":
-        def frames(rounds):
-            for _ in range(rounds):
-                for i in views:
-                    drv.frame = i
-                    drv._frame()
-                    sync(drv.device)
-        return frames
-    t = drv.trainer
-    cams = t.train_cameras()
-
-    def steps(rounds):
-        for _ in range(rounds):
-            for i in views:
-                t.train_step(cams[i], i)
-        sync(drv.device)
-    return steps
-
-
 def measure(drv, views: List[int], steps: int) -> dict:
     """Both passes on the set-up driver `drv`; see the module's doc."""
     from mini3dgs_tpu_torch.utils.profiling import recording
-    run = _rounds(drv, views)
+    run = drv.replay(views)
     rounds = -(-steps // len(views))
     n = rounds * len(views)
     rec = recording(drv.device)
-    counted = recording(drv.device, count_syncs=True)
+    # syncs are a card's: a run on the CPU counts none, wherever it runs
+    counted = recording(drv.device,
+                        count_syncs=drv.device.type == "cuda")
     for r in (rec, counted):
         gc.collect()
         run(1)
@@ -185,10 +155,12 @@ def measure(drv, views: List[int], steps: int) -> dict:
 
 def main(arg: str) -> None:
     a = json.loads(arg)
+    bench_dir = Path(a["bench_dir"])
     cell = Cell(name=a["name"], chips=a["chips"], config=a["config"],
                 traffic=a["traffic"], limits={}, end_to_end=[],
                 per_layer=[], readers={},
-                driver=load_driver(a["traffic"]["kind"]))
+                driver=load_driver(a["traffic"]["kind"], bench_dir),
+                bench_dir=bench_dir)
     drv = cell.driver(cell, a["seed"], torch.device(a["device"]),
                       Path(a["out_dir"]))
     t0 = time.perf_counter()

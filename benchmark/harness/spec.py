@@ -5,7 +5,11 @@
   of the measured package that it runs through, what was cut and assumed);
 - `traffic/<mix>.json`: the traffic mix's parameters, read by the one
   driver of its `kind`;
-- `drivers/<kind>.py`: that driver, a class `Driver`;
+- `drivers/<kind>.py`: that driver, a class `Driver(cell, seed, device,
+  out_dir)`.  `run.py` calls its `setup`, `window`, `trace`, `release`,
+  `reference`, `numbers` and `scene_line`; `calibrate.py` its `check_run`,
+  `controls` and `calibration`; the stage recorder (`recorded.py`) its
+  `PASS_STEPS`, `traced_views` and `replay`, where it has them;
 - `limits/<cell>.json`: the limit of each number `correct` compares (a
   cell without one is never correct);
 - `metrics/<metric>.py`: the reader of one per-layer metric, a function
@@ -40,6 +44,7 @@ class Cell:
     per_layer: List[dict]
     readers: Dict[str, Callable]
     driver: type
+    bench_dir: Path = BENCH_DIR   # the folder its files were found in
 
 
 def _read_json(path: Path) -> dict:
@@ -107,4 +112,5 @@ def load_cell(name: str, benchmark: dict = None,
                 per_layer=per_layer,
                 readers={m["name"]: load_reader(m["name"], bench_dir)
                          for m in per_layer},
-                driver=load_driver(traffic["kind"], bench_dir))
+                driver=load_driver(traffic["kind"], bench_dir),
+                bench_dir=bench_dir)

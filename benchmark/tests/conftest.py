@@ -3,6 +3,7 @@
 marker, and cells cut to a size the CPU runs in seconds."""
 
 import copy
+import os
 import sys
 from pathlib import Path
 
@@ -13,6 +14,10 @@ ROOT = BENCH.parent
 for _p in (str(BENCH), str(ROOT)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
+# Few threads in the test processes and in those they start (the
+# recorder's passes): OpenMP's spinning workers, more than the cores under
+# pytest-xdist, slow the tiny windows past their checked frames.
+os.environ.setdefault("OMP_NUM_THREADS", "2")
 
 
 def pytest_configure(config):
@@ -36,13 +41,18 @@ def _small_blocks(monkeypatch):
     monkeypatch.setattr(raster, "PAIR_BUDGET", 1 << 18)
 
 
-def tiny_cell(name: str, n: int = 2000, width: int = 64, height: int = 48,
-              views: int = 6):
+def tiny_cell(name: str, **size):
     """The cell `name` of BENCHMARK.json or `held_out.json` at a size the
-    CPU runs: its own configuration, mix and limits, with fewer Gaussians,
-    smaller images, fewer views and a shorter orbit."""
+    CPU runs (see `shrink`)."""
     from harness import spec
-    cell = spec.load_cell(name, spec.with_held_out())
+    return shrink(spec.load_cell(name, spec.with_held_out()), **size)
+
+
+def shrink(cell, n: int = 2000, width: int = 64, height: int = 48,
+           views: int = 6):
+    """`cell` at a size the CPU runs: its own configuration, mix and
+    limits, with fewer Gaussians, smaller images, fewer views and a
+    shorter orbit."""
     c = copy.deepcopy(cell.config)
     c["n_gaussians"], c["n_train_views"] = n, views
     c["settings"]["image_width"] = width

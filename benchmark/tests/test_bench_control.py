@@ -28,20 +28,14 @@ def test_control_is_not_correct(name):
     drv = cell.driver(cell, SEED, torch.device("cpu"),
                       bench_run.ROOT / "build" / "t")
     drv.setup()
-    if cell.traffic["kind"] == "render":
-        drv.window(1.5)
+    drv.check_run(1.5)
     drv.release()
     ref = drv.reference()
-    low = drv.reference(torch.bfloat16)
-    if cell.traffic["kind"] == "render":
-        numbers = check.render_numbers([low[k] for k in sorted(ref)],
-                                       [ref[k] for k in sorted(ref)])
-    else:
-        numbers = check.train_numbers(low, ref)
+    numbers = drv.controls(ref)["control"]
     ok, _ = check.judge(numbers, cell.limits)
     assert not ok, numbers
-    ok, _ = check.judge(drv.numbers(ref), cell.limits)
-    assert ok
+    ok, checks = check.judge(drv.numbers(ref), cell.limits)
+    assert ok, checks
 
 
 @pytest.mark.parametrize("name", ["nerf_synthetic_800.train"])

@@ -81,6 +81,7 @@ def test_readers_that_were_there_read_the_same():
 def test_a_context_with_no_driver_behind_it(monkeypatch):
     """Reads nothing on the CPU; raises on a card, where the readers
     must find the driver."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert recorded.program(_ctx()) is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(RuntimeError, match="no driver"):
@@ -95,8 +96,22 @@ def test_a_package_without_the_recorder_reads_nothing(monkeypatch):
     monkeypatch.delattr(profiling, "recording")
     monkeypatch.setattr(recorded.subprocess, "run", None)
     held = SimpleNamespace(trace=lambda: None, seed=1, device="cpu",
-                           out_dir=ROOT, cell=SimpleNamespace(
-                               traffic={"kind": "render"}))
+                           out_dir=ROOT, replay=lambda views: None,
+                           cell=SimpleNamespace(traffic={"kind": "render"}))
+    ctx = _ctx()
+    assert recorded._driver() is held
+    for name in NEW:
+        assert spec.load_reader(name)(ctx) is None
+
+
+def test_a_driver_without_replay_reads_nothing(monkeypatch):
+    """A driver that offers the recorder nothing to replay: the readers
+    give None, and no process is started."""
+    from types import SimpleNamespace
+    monkeypatch.setattr(recorded.subprocess, "run", None)
+    held = SimpleNamespace(trace=lambda: None, seed=1, device="cpu",
+                           out_dir=ROOT,
+                           cell=SimpleNamespace(traffic={"kind": "other"}))
     ctx = _ctx()
     assert recorded._driver() is held
     for name in NEW:
@@ -104,8 +119,8 @@ def test_a_package_without_the_recorder_reads_nothing(monkeypatch):
 
 
 def test_tiny_render_cell_on_the_cpu(monkeypatch):
-    monkeypatch.setitem(recorded.STEPS, "render", 5)
     cell = tiny_cell("mipnerf360_outdoor.render")
+    monkeypatch.setattr(cell.driver, "PASS_STEPS", 5)
     drv = cell.driver(cell, SEED, torch.device("cpu"),
                       bench_run.ROOT / "build" / "t")
     drv.setup()
@@ -157,10 +172,10 @@ def test_train_readers_load_on_the_tiny_train_cell(monkeypatch):
                                "layer": "host dispatch",
                                "moves": "train_step_ms",
                                "workloads": HELD_OUT_TRAIN})
-    monkeypatch.setitem(recorded.STEPS, "train", 3)
     full = spec.load_cell(HELD_OUT_TRAIN[0], b)
     assert {"host_syncs.train", "backward.wall_ms.train"} <= set(full.readers)
     cell = tiny_cell(HELD_OUT_TRAIN[0])
+    monkeypatch.setattr(cell.driver, "PASS_STEPS", 3)
     drv = cell.driver(cell, SEED, torch.device("cpu"),
                       bench_run.ROOT / "build" / "t")
     drv.setup()
@@ -183,8 +198,8 @@ def test_traced_run_reports_the_four_on_the_card(monkeypatch):
     four readers find the driver and read the recorder."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    monkeypatch.setitem(recorded.STEPS, "render", 12)
     cell = tiny_cell("mipnerf360_outdoor.render")
+    monkeypatch.setattr(cell.driver, "PASS_STEPS", 12)
     res = bench_run.run(cell, SEED, 1.0, True, torch.device("cuda", 0),
                         time.perf_counter())
     assert res["correct"], res["checks"]

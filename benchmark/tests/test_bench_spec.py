@@ -13,6 +13,10 @@ from harness import spec
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 BENCHMARK = json.loads((ROOT / "BENCHMARK.json").read_text())
+# what run.py and calibrate.py call on a driver
+RUN_CALLS = ("setup", "window", "trace", "release", "reference", "numbers",
+             "scene_line")
+CALIBRATE_CALLS = ("check_run", "controls", "calibration")
 
 
 def test_keys_names_and_units():
@@ -43,7 +47,9 @@ def test_keys_names_and_units():
 def test_cell_loads_by_name(cell):
     c = spec.load_cell(cell)
     assert c.chips == 1
-    assert c.traffic["kind"] in ("train", "render")
+    assert (BENCH / "drivers" / f"{c.traffic['kind']}.py").is_file()
+    for method in RUN_CALLS + CALIBRATE_CALLS:
+        assert callable(getattr(c.driver, method, None)), method
     assert (ROOT / c.config["recipe"]).is_file()
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
