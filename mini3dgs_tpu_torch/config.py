@@ -11,7 +11,9 @@ size the TPU's static shapes or pick its dispatch.  The port's instance
 stream holds exactly the live instances, its collectives move
 variable-length slices (so the ring v3 reshard needs no bucket capacity)
 and it takes one step per call, so they mean nothing here: a file that
-sets them is read, and the keys are reported once on stderr.
+sets them is read, and the keys are reported once on stderr.  The other
+way round, `PORT_ONLY_KEYS` are the port's fields that the JAX package
+lacks; their defaults keep the JAX package's behaviour.
 """
 
 from __future__ import annotations
@@ -54,6 +56,12 @@ class TrainingConfig:
     opacity_lr: float = 0.05
     scaling_lr: float = 0.005
     rotation_lr: float = 0.001
+    # "cosine": every group's rate times one cosine factor of the position
+    # schedule, as the JAX package has it; "3dgs": the 3DGS paper's code,
+    # only the position rate decayed (exponentially), every other group at
+    # its constant rate, the SH rest terms at feature_lr / 20
+    # (train/optimizer.step_lrs).
+    lr_schedule: str = "cosine"
 
     # -- density control --
     densify_from_iter: int = 500
@@ -130,6 +138,9 @@ SHAPE_ONLY_KEYS = ("max_instances", "gaussian_chunk", "max_dup_per_axis",
                    "steps_per_call", "loop_stage_budget_mb",
                    "auto_max_instances", "dtype")
 
+# The port's fields that the JAX package's TrainingConfig does not have.
+PORT_ONLY_KEYS = ("lr_schedule",)
+
 # Mapping from nested YAML groups to flat field names (the JAX package's).
 _NESTED_MAP = {
     ("data", "path"): "data_path",
@@ -145,6 +156,7 @@ _NESTED_MAP = {
     ("learning_rates", "opacity"): "opacity_lr",
     ("learning_rates", "scaling"): "scaling_lr",
     ("learning_rates", "rotation"): "rotation_lr",
+    ("learning_rates", "schedule"): "lr_schedule",
     ("density_control", "densify_from_iter"): "densify_from_iter",
     ("density_control", "densify_until_iter"): "densify_until_iter",
     ("density_control", "densify_grad_threshold"): "densify_grad_threshold",

@@ -90,7 +90,10 @@ def project_gaussians_plain(g: Gaussians, camera: Camera, *,
                             sh_degree: int = 0, scale_modifier: float = 1.0,
                             antialias: bool = False) -> Projected:
     """The projection as a chain of PyTorch ops, on either device and
-    differentiable."""
+    differentiable.  Under a graph, a row that cannot be visible gets a
+    gradient of exactly 0, and its conic, radius and extents are those of
+    its point moved to depth 1 (without a graph they are what P1
+    computes)."""
     W, H = camera.width, camera.height
     fx = 0.5 * W / torch.tan(camera.FoVx * 0.5)
     fy = 0.5 * H / torch.tan(camera.FoVy * 0.5)
@@ -106,7 +109,6 @@ def project_gaussians_plain(g: Gaussians, camera: Camera, *,
     front = Z > 1e-6
     Zs = torch.where(front, Z, torch.ones_like(Z))
     invZ = 1.0 / Zs
-    invZ2 = invZ * invZ
 
     xpix = fx * X * invZ + cx
     ypix = -fy * Y * invZ + cy
@@ -123,6 +125,19 @@ def project_gaussians_plain(g: Gaussians, camera: Camera, *,
         rows.append(((m0 * r[0] + m1 * r[3] + m2 * r[6]) * s0,
                      (m0 * r[1] + m1 * r[4] + m2 * r[7]) * s1,
                      (m0 * r[2] + m1 * r[5] + m2 * r[8]) * s2))
+
+    if any(t.requires_grad for t in (X, Y, Zs, sigma, r[0], fx, fy)):
+        # Under a graph, a row that no radius (at most radius_max) can bring
+        # into the frame takes the Jacobian at depth 1: a centre just in
+        # front of the camera's plane far to the side overflows the 2D
+        # covariance, and autograd would multiply the row's zero cotangent
+        # by its infinite derivatives.  Its gradient is then exactly 0;
+        # every other row computes what it did.
+        m = max(radius_min, radius_max)
+        near = (front & g.alive & (xpix >= -m) & (xpix < W + m)
+                & (ypix >= -m) & (ypix < H + m))
+        invZ = 1.0 / torch.where(near, Zs, 1.0)
+    invZ2 = invZ * invZ
 
     # J = [[fx/Z, 0, -fx X/Z^2], [0, -fy/Z, fy Y/Z^2]]
     j00 = fx * invZ

@@ -1,5 +1,5 @@
-"""Optimizer: multi-group Adam with a cosine learning-rate schedule
-(counterpart of mini3dgs_tpu/train/optimizer.py).
+"""Optimizer: multi-group Adam with a cosine or the 3DGS paper's
+learning-rate schedule (counterpart of mini3dgs_tpu/train/optimizer.py).
 
 The JAX package chains optax's `scale_by_adam` (b1 0.9, b2 0.999, eps 1e-8,
 eps outside the square root of the bias-corrected second moment), a static
@@ -9,6 +9,11 @@ per-group learning rate, and one shared schedule factor
 parameter, and `sched_count` (the schedule's step, 0 at the first update).
 After densification the moments are zeroed only at the slots whose
 identity changed (`reset_adam_slots`).
+
+`step_lrs` gives a step's rates under `config.lr_schedule`: "cosine" (the
+default) is the JAX package's; "3dgs" is the code published with the 3DGS
+paper (`get_expon_lr_func` for the position rate alone, every other group
+at its constant rate, the SH rest terms at feature_lr / 20).
 """
 
 from __future__ import annotations
@@ -37,6 +42,24 @@ def cosine_delay_lr(step, lr_init: float, lr_final: float,
         lr *= lr_delay_mult + (1 - lr_delay_mult) * min(
             step / lr_delay_steps, 1.0)
     return lr
+
+
+def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int,
+             lr_delay_mult: float, max_steps: int) -> float:
+    """The 3DGS code's `get_expon_lr_func`: the log-linear path from lr_init
+    to lr_final over max_steps, times a sine ramp from lr_delay_mult over
+    lr_delay_steps where those are set; 0 before step 0 or where both rates
+    are 0."""
+    if step < 0 or (lr_init == 0.0 and lr_final == 0.0):
+        return 0.0
+    if lr_delay_steps > 0:
+        delay = lr_delay_mult + (1.0 - lr_delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
+    else:
+        delay = 1.0
+    t = min(max(step / max_steps, 0.0), 1.0)
+    return delay * math.exp(math.log(lr_init) * (1.0 - t)
+                            + math.log(lr_final) * t)
 
 
 def group_lrs(config: TrainingConfig) -> dict:
@@ -73,6 +96,26 @@ def schedule_factor(config: TrainingConfig, sched_count: int) -> float:
                            config.position_lr_delay_mult,
                            config.position_lr_max_steps)
     return base / config.position_lr_init
+
+
+def step_lrs(config: TrainingConfig, sched_count: int):
+    """(per-group rates, factor) of the step taken after `sched_count`
+    schedule steps, for `adam_update`: parameter k moves by its Adam step
+    times `lrs[k] * factor`."""
+    if config.lr_schedule == "cosine":
+        return group_lrs(config), schedule_factor(config, sched_count)
+    if config.lr_schedule == "3dgs":
+        lrs = group_lrs(config)
+        lrs["features_rest"] = config.feature_lr / 20.0
+        # sched_count steps are done: this one is iteration sched_count + 1
+        lrs["xyz"] = expon_lr(sched_count + 1, config.position_lr_init,
+                              config.position_lr_final,
+                              config.position_lr_delay_steps,
+                              config.position_lr_delay_mult,
+                              config.position_lr_max_steps)
+        return lrs, 1.0
+    raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}: "
+                     "'cosine' or '3dgs'")
 
 
 @torch.no_grad()

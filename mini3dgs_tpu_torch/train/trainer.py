@@ -43,8 +43,8 @@ from ..utils import profiling
 from ..utils.metrics import psnr
 from . import density
 from .exposure import apply_exposure, init_exposure
-from .optimizer import (AdamState, adam_update, group_lrs, init_adam,
-                        reset_adam_slots, schedule_factor)
+from .optimizer import (AdamState, adam_update, init_adam, reset_adam_slots,
+                        step_lrs)
 
 
 @dataclass
@@ -122,6 +122,7 @@ def train_step(state: TrainState, camera: Camera, config: TrainingConfig,
         wrt.append(exposure)
     with profiling.stage("3dgs:backward"):
         grads_all = torch.autograd.grad(total, wrt, allow_unused=True)
+    profiling.count_nonfinite("grad_nonfinite", grads_all[:len(params)])
     new_state = apply_gradients(state, params, probe, exposure, grads_all,
                                 config, settings, out["radii"].detach(),
                                 out["visibility_filter"])
@@ -166,8 +167,8 @@ def apply_gradients(state: TrainState, params: Dict[str, torch.Tensor],
 
         detached = {k: v.detach() for k, v in params.items()}
         new_params, opt_state = adam_update(
-            detached, grads, state.opt_state, group_lrs(config),
-            schedule_factor(config, state.opt_state.sched_count))
+            detached, grads, state.opt_state,
+            *step_lrs(config, state.opt_state.sched_count))
         new_exposure, exp_opt = state.exposure, state.exp_opt_state
         if exposure is not None:
             upd, exp_opt = adam_update(

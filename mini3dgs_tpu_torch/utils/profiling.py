@@ -33,15 +33,16 @@ beside a host timestamp, puts the card's intervals on the host clock, late
 by the anchor's launch latency (a few microseconds) at most.
 
 Counters: what `count` adds (`instances`: the stream length binning
-emits), the raster launches (`raster_fwd.launches`, ...) and
-`parallel/mesh.TRAFFIC`, read as differences over the recording, and with
-`count_syncs=True` on a card `host_syncs`: the "synchronizing CUDA
-operation" warnings of `torch.cuda.set_sync_debug_mode("warn")`, each
-counted against the innermost stage open on the thread that synced, or
-`(none)`, and the line of Python that called the operation
-(`sync_sites`; `syncs()` sums them by stage).  The warning costs host time
-at each sync, so syncs are counted in a recording of their own, whose
-walls are not the program's.
+emits; `grad_nonfinite`, by `count_nonfinite`: the entries of a train
+step's parameter gradients that are not finite), the raster launches
+(`raster_fwd.launches`, ...) and `parallel/mesh.TRAFFIC`, read as
+differences over the recording, and with `count_syncs=True` on a card
+`host_syncs`: the "synchronizing CUDA operation" warnings of
+`torch.cuda.set_sync_debug_mode("warn")`, each counted against the
+innermost stage open on the thread that synced, or `(none)`, and the
+line of Python that called the operation (`sync_sites`; `syncs()` sums
+them by stage).  The warning costs host time at each sync, so syncs are
+counted in a recording of their own, whose walls are not the program's.
 """
 
 from __future__ import annotations
@@ -154,9 +155,21 @@ def step(name: str):
 
 
 def count(name: str, value) -> None:
-    """Add `value` to the counter `name` of the active recording, if any."""
+    """Add `value` to the counter `name` of the active recording, if any.
+    A tensor value is summed on its device and read when the recording
+    ends, so counting it adds no host sync to the step."""
     if _active is not None:
         _active.counts[name] = _active.counts.get(name, 0) + value
+
+
+def count_nonfinite(name: str, tensors) -> None:
+    """Add the entries of `tensors` (None skipped) that are not finite to
+    the counter `name` of the active recording, if any; with none active it
+    costs one test."""
+    if _active is not None:
+        found = [(~torch.isfinite(t)).sum() for t in tensors if t is not None]
+        if found:
+            count(name, torch.stack(found).sum())
 
 
 @dataclass(eq=False)
@@ -316,6 +329,8 @@ class Recording:
                 caught.__exit__(*exc)
         now = _watched()
         self._diff = {k: now[k] - v for k, v in self._base.items()}
+        self.counts = {k: v.item() if isinstance(v, torch.Tensor) else v
+                       for k, v in self.counts.items()}
         if self.cuda:
             torch.cuda.synchronize(self.device)
             ns = lambda ev: self._origin + 1e6 * self._anchor.elapsed_time(ev)

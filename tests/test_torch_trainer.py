@@ -170,7 +170,7 @@ def test_events_and_counts_match_jax(runs):
         pt.config, **{f.name: getattr(jt.config, f.name)
                       for f in dataclasses.fields(pt.config)
                       if f.name not in ("output_path", "save_interval",
-                                        "device")})
+                                        "device", *tconfig.PORT_ONLY_KEYS)})
 
 
 def test_losses_match_jax(runs):
