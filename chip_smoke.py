@@ -9,9 +9,10 @@ each against its plain PyTorch version on the card (edge cases at tile 16
 and 32, a ragged image edge, the kernels' own staging and per-patch reject
 cases at both launch shapes, and the golden rasterizer and its autograd on
 a small scene), checks that binning on the card equals binning on the CPU,
-holds the projection kernel P1 (csrc/project_fwd.cu) against the plain
-projection chain on that scene in every build (then on each block of the
-ring render below) and times it against its byte bound, renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
+holds the projection kernels P1 (csrc/project_fwd.cu) and P2
+(csrc/project_bwd.cu) against the plain projection chain and its
+autograd on that scene in every build (then on each block of the ring
+render below) and times them against their byte bounds, renders the flagship 100,000-Gaussian SH-3 scene at 800x800 through
 `render`, runs the novel-view entry point, takes six full-width train
 steps (then one densify and one prune step) on that scene, and runs the
 training entry point.  Then the ring route (parallel/ring.py) with five
@@ -253,6 +254,119 @@ def gate_projection(got, want, rotation: torch.Tensor, name: str) -> float:
                                      "relative")
             worst = max(worst, err)
     return worst
+
+
+# Bytes the backward projection kernel P2 (csrc/project_bwd.cu) reads and
+# writes a Gaussian: P1's 237 B of parameters and 40 B of cotangents (means
+# 8, conic 12, depth 4, colour 12, opacity 4) in; 236 B of gradients (xyz
+# 12, features_dc 12, features_rest 180, log-scale 12, quaternion 16,
+# opacity 4) out.
+PROJECT_BWD_BYTES = 513
+# P2 against the plain VJP, each gradient by its leaf's norm.  Both are
+# float32 evaluations of a gradient that is ill-conditioned on elongated and
+# degenerate Gaussians: on the card tests' scene the float32 chain itself
+# lies up to 3.4e-5 (the quaternion) and 2.1e-5 (the log-scale, under
+# antialias) from the same chain in float64, and P2 up to 1.2e-5 from the
+# float32 chain (measured on an H100 80GB HBM3).  So P2 is held within
+# PROJECT_BWD_RTOL of the float32 chain and, against the float64 chain, to
+# no more than PROJECT_BWD_F64_RATIO times the float32 chain's own distance
+# (plus 1e-6): as accurate as the plain version.
+PROJECT_BWD_RTOL = 5e-5
+PROJECT_BWD_F64_RATIO = 1.5
+
+
+def seeded_cotangents(g, seed: int) -> tuple:
+    """Standard normal cotangents of the projection's five differentiable
+    fields (`pj.COTANGENT_FIELDS`) on every row of `g`."""
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    C = g.capacity
+    return tuple(torch.randn(*shape, generator=gen, device=g.device)
+                 for shape in ((C, 2), (C, 3), (C,), (C, 3), (C,)))
+
+
+def guarded_rows(g, cam, kw: dict) -> torch.Tensor:
+    """The rows the chain's guard keeps under a graph (ops/projection.py):
+    alive, in front of the camera, the centre within max(radius_min,
+    radius_max) of the frame."""
+    from mini3dgs_tpu_torch.ops.projection import project_gaussians_plain
+    with torch.no_grad():
+        p = project_gaussians_plain(g, cam, **kw)
+    m = max(kw.get("radius_min", 0.01), kw.get("radius_max", 50.0))
+    x, y = p.means2d.unbind(-1)
+    return ((p.depth > 1e-6) & g.alive & (x >= -m) & (x < cam.width + m)
+            & (y >= -m) & (y < cam.height + m))
+
+
+def float64_pair(g, cam):
+    """`g` and `cam` with every float32 tensor in float64."""
+    up = lambda t: t.double() if t is not None and t.dtype == torch.float32 \
+        else t
+    return g._map(up), cam.replace(view_matrix=up(cam.view_matrix),
+                                   FoVx=up(cam.FoVx), FoVy=up(cam.FoVy))
+
+
+def gate_gradients(got: dict, want: dict, want64: dict, name: str,
+                   dropped=None) -> float:
+    """P2's gradients `got` against the plain version's, `want` in float32
+    and `want64` in float64, by parameter name: each at its parameter's
+    dtype and shape, finite, exactly 0 on the rows `dropped` (when given),
+    within PROJECT_BWD_RTOL of `want` by the norm of the difference over
+    the norm of `want` (or, where `want` itself lies farther from `want64`,
+    as on a leaf whose gradient is 0 up to rounding, such as the quaternions
+    of isotropic Gaussians, within PROJECT_BWD_F64_RATIO times that
+    distance), and no farther from `want64` than PROJECT_BWD_F64_RATIO
+    times `want`'s own distance, plus 1e-6.  Raises on a mismatch; returns
+    the largest distance from `want` of a leaf held within
+    PROJECT_BWD_RTOL."""
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k]
+        if b is None or a is None:
+            if a is not b:
+                raise AssertionError(f"{name}: {k} is {a} where the chain "
+                                     f"gives {b}")
+            continue
+        if (a.dtype, a.shape) != (b.dtype, b.shape):
+            raise AssertionError(f"{name}: {k} is {a.dtype} "
+                                 f"{tuple(a.shape)}, the chain's {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: {k} is not finite")
+        if dropped is not None and bool((a[dropped] != 0).any()):
+            raise AssertionError(f"{name}: {k} is not 0 on the rows the "
+                                 "guard drops")
+        dist = lambda x, y: float((x.double() - y).norm() / y.norm()) \
+            if bool(y.any()) else float(x.abs().max())
+        err, b64 = dist(a, b.double()), want64[k]
+        own, ours = dist(b, b64), dist(a, b64)
+        if not err <= max(PROJECT_BWD_RTOL, PROJECT_BWD_F64_RATIO * own):
+            raise AssertionError(f"{name}: {k} off by {err:.3g} by its norm")
+        if not ours <= PROJECT_BWD_F64_RATIO * own + 1e-6:
+            raise AssertionError(f"{name}: {k} lies {ours:.3g} from the "
+                                 f"float64 chain, the float32 chain "
+                                 f"{own:.3g}")
+        if PROJECT_BWD_F64_RATIO * own <= PROJECT_BWD_RTOL:
+            worst = max(worst, err)
+    return worst
+
+
+def gate_projection_bwd(got: dict, g, cam, cotangents, kw: dict,
+                        name: str) -> float:
+    """P2's gradients (`pj.project_bwd` on `cotangents`) against the plain
+    version's (`pj.project_bwd_plain`, in float32 and in float64) on the
+    same rows and card, given the cotangents of the rows the chain's guard
+    keeps (`guarded_rows`), through `gate_gradients`, with every row the
+    guard drops exactly 0.  Returns the largest distance from the float32
+    plain version."""
+    from mini3dgs_tpu_torch.ops import projection as pj
+    near = guarded_rows(g, cam, kw)
+    kept = tuple(t * near.reshape((-1,) + (1,) * (t.dim() - 1))
+                 for t in cotangents)
+    want = pj.project_bwd_plain(g, cam, kept, **kw)
+    g64, cam64 = float64_pair(g, cam)
+    want64 = pj.project_bwd_plain(g64, cam64, [t.double() for t in kept],
+                                  **kw)
+    return gate_gradients(got, want, want64, name, dropped=~near)
 
 
 ROWS_REL_L2 = 1e-4   # gate_rows' bound on each row's rel-L2
@@ -2565,6 +2679,36 @@ def main() -> int:
           f", the rest within {p1_err:.3g} relative; SH 3: kernel "
           f"{p1_ms:.4f} ms, plain {p1_plain_ms:.3f} ms, bound "
           f"{p1_bound:.4f} ms (bytes)", flush=True)
+    # P2 on the same pool and view: every build with and without
+    # antialias, standard normal cotangents on every row, against the plain
+    # VJP; then the SH-3 build's time against the chain's backward alone
+    # (its graph built once) and against its byte bound.
+    p2_err = 0.0
+    cots = seeded_cotangents(g, 3)
+    for mode, deg in (("dc_sigmoid", 0), ("sh", 0), ("sh", 1), ("sh", 2),
+                      ("sh", 3)):
+        for aa in (False, True):
+            kw = dict(color_mode=mode, sh_degree=deg, antialias=aa)
+            p2_err = max(p2_err, gate_projection_bwd(
+                pj.project_bwd(g, bench_cam, cots, **kw), g, bench_cam,
+                cots, kw, f"P2 {mode} {deg} antialias {aa}"))
+    kw = dict(color_mode="sh", sh_degree=3)
+    p2_ms = cuda_ms(lambda: pj.project_bwd(g, bench_cam, cots, **kw),
+                    inner=4)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in g.params().items()}
+    chain = pj.project_gaussians_plain(g.with_params(leaves), bench_cam, **kw)
+    p2_plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        [getattr(chain, f) for f in pj.COTANGENT_FIELDS],
+        list(leaves.values()), cots, retain_graph=True))
+    del chain, leaves
+    p2_bound = PROJECT_BWD_BYTES * p1_rows / PEAK_BYTES_PER_S * 1e3
+    print(f"[4b projection kernel P2 vs plain] the same pool and view, 5 "
+          f"builds x antialias: every gradient within {p2_err:.3g} of the "
+          f"plain VJP by its norm, exactly 0 on the rows the guard drops; "
+          f"SH 3: kernel {p2_ms:.4f} ms, the chain's backward "
+          f"{p2_plain_ms:.3f} ms, bound {p2_bound:.4f} ms (bytes)",
+          flush=True)
 
     # ---- 5. the render slice: two 800^2 views through render ----------
     settings = RenderSettings(image_height=VIEW_SIZE, image_width=VIEW_SIZE,
@@ -2577,7 +2721,7 @@ def main() -> int:
         render(g, cams[0], settings)  # warm-up (allocator, kernel load)
         torch.cuda.synchronize()
         rc.raster_fwd.launches = rc.raster_bwd.launches = 0
-        pj.project_fwd.launches = 0
+        pj.project_fwd.launches = pj.project_bwd.launches = 0
         outs, render_ms = [], []
         for cam_v in cams:
             t0 = time.perf_counter()
@@ -2586,12 +2730,14 @@ def main() -> int:
             render_ms.append((time.perf_counter() - t0) * 1e3)
         render_launches = rc.raster_fwd.launches
         p1_render_launches = pj.project_fwd.launches
+        p2_render_launches = pj.project_bwd.launches
     if render_launches != len(cams) or rc.raster_bwd.launches != 0:
         raise AssertionError(f"render launched the forward kernel "
                              f"{render_launches} times for {len(cams)} views")
-    if p1_render_launches != len(cams):
-        raise AssertionError(f"render launched P1 {p1_render_launches} "
-                             f"times for {len(cams)} views")
+    if (p1_render_launches, p2_render_launches) != (len(cams), 0):
+        raise AssertionError(f"render launched P1 / P2 {p1_render_launches}"
+                             f" / {p2_render_launches} times for "
+                             f"{len(cams)} views")
     print(f"[5 render slice] {len(cams)} views {VIEW_SIZE}x{VIEW_SIZE}, "
           f"{N_GAUSSIANS} Gaussians (pool {CAPACITY}), SH 3, tile 32, white "
           f"bg: forward launches {render_launches}, P1 launches "
@@ -2680,7 +2826,7 @@ def main() -> int:
     state = trainer.create_train_state(g0, config)
     torch.cuda.synchronize()
     rc.raster_fwd.launches = rc.raster_bwd.launches = 0
-    pj.project_fwd.launches = 0
+    pj.project_fwd.launches = pj.project_bwd.launches = 0
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2693,11 +2839,13 @@ def main() -> int:
     if train_launches != (TRAIN_STEPS, TRAIN_STEPS):
         raise AssertionError(f"{TRAIN_STEPS} train steps launched the "
                              f"kernels {train_launches} times")
-    # A train step needs the projection's graph: the chain, never P1.
+    # A train step projects through `_ProjectGraph`: one P1 and one P2.
     p1_train_launches = pj.project_fwd.launches
-    if p1_train_launches != 0:
-        raise AssertionError(f"{TRAIN_STEPS} train steps launched P1 "
-                             f"{p1_train_launches} times")
+    p2_train_launches = pj.project_bwd.launches
+    if (p1_train_launches, p2_train_launches) != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched P1 / P2 "
+                             f"{p1_train_launches} / {p2_train_launches} "
+                             "times")
     dead = ~g0.alive
     for k, v in state.gaussians.params().items():
         for what, t in (("parameter", v), ("Adam mu", state.opt_state.mu[k]),
@@ -2714,7 +2862,8 @@ def main() -> int:
         raise AssertionError("the densify statistics were not accumulated")
     print(f"[7 train slice] {TRAIN_STEPS} steps {VIEW_SIZE}x{VIEW_SIZE}, "
           f"{N_GAUSSIANS} Gaussians (pool {CAPACITY}), SH 3, tile 32: "
-          f"launches fwd/bwd {train_launches}, loss {losses[0]:.5f} -> "
+          f"launches fwd/bwd {train_launches}, P1/P2 {p1_train_launches}/"
+          f"{p2_train_launches}, loss {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}, n_live {metrics['render_instances']}, step ms "
           f"median {np.median(step_ms):.2f} min {min(step_ms):.2f} max "
           f"{max(step_ms):.2f}", flush=True)
@@ -2857,6 +3006,15 @@ def main() -> int:
                 pj.project_fwd(part, bench_cam, **kw),
                 pj.project_gaussians_plain(part, bench_cam, **kw),
                 part.rotation, f"P1 ring block {r}"))
+    # P2 on the same blocks, each with its rows' cotangents.
+    ring_cots = seeded_cotangents(g_ring, 5)
+    for r in range(n_rk):
+        rows = slice(r * r_block, (r + 1) * r_block)
+        part = g_ring.slots(rows.start, rows.stop)
+        part_cots = tuple(t[rows] for t in ring_cots)
+        p2_err = max(p2_err, gate_projection_bwd(
+            pj.project_bwd(part, bench_cam, part_cots, **kw), part,
+            bench_cam, part_cots, kw, f"P2 ring block {r}"))
     if misaligned == 0:
         raise AssertionError("no ring block starts off 16 bytes")
     print(f"[9 ring render] {VIEW_SIZE}^2 tile 32, {N_GAUSSIANS} Gaussians "
@@ -2864,7 +3022,7 @@ def main() -> int:
           f"(fwd, bwd, fwd t0, bwd t0) {ring_render_launches}, render ms "
           f"{' '.join(f'{t:.2f}' for t in ring_ms)}; P1 launches "
           f"{p1_ring_launches}, on each rank's block ({misaligned} off 16 "
-          f"bytes) as the chain", flush=True)
+          f"bytes) P1 and P2 as the chain", flush=True)
     raw = lambda o: o["depth"] * (o["alpha"] + 1e-6)
     d_scale = float(raw(single).abs().max())
     ring_render_err = max(
@@ -3473,7 +3631,14 @@ def main() -> int:
          "launches_ring_render": p1_ring_launches,
          "exact_fields_bitwise": p1_exact, "max_rel_err": p1_err,
          "rows": p1_rows, "ms": p1_ms, "plain_ms": p1_plain_ms,
-         "bound_ms": p1_bound, "bound_by": "bytes", "library_ms": None}],
+         "bound_ms": p1_bound, "bound_by": "bytes", "library_ms": None},
+        # The same pool and view; plain_ms is the chain's backward alone.
+        {"name": "project_bwd", "route": "cuda",
+         "source": "mini3dgs_tpu_torch/csrc/project_bwd.cu",
+         "replaces": None, "launches": p2_train_launches,
+         "launches_render": p2_render_launches, "max_rel_err": p2_err, "rows": p1_rows,
+         "ms": p2_ms, "plain_ms": p2_plain_ms, "bound_ms": p2_bound,
+         "bound_by": "bytes", "library_ms": None}],
         "ring": {"ranks": n_rk, "render_ms": ring_ms, "step_ms": r_ms,
                  "render_err": ring_render_err,
                  "grad_rel_l2": ring_grad_err},

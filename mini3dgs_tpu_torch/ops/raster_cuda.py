@@ -418,10 +418,15 @@ def kernel_library() -> KernelLibrary:
     lib.project_fwd_launch.argtypes = ([ptr] * 10 + [ctypes.c_longlong]
                                        + [i32] * 4 + [f32] * 4
                                        + [ptr] * 10)
+    # (10 inputs, n, width, height, sh_degree, antialias, scale_modifier,
+    #  the guard's three bounds, 5 cotangents, 6 gradients, stream)
+    lib.project_bwd_launch.argtypes = ([ptr] * 10 + [ctypes.c_longlong]
+                                       + [i32] * 4 + [f32] * 4
+                                       + [ptr] * 12)
     for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
                lib.raster_bwd_launch, lib.raster_bwd_t0_launch,
                lib.raster_fwd_blocks_per_sm, lib.raster_bwd_blocks_per_sm,
-               lib.project_fwd_launch):
+               lib.project_fwd_launch, lib.project_bwd_launch):
         fn.restype = i32
     return KernelLibrary(lib, path, seconds, log)
 

@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the raster kernels B1-B4 and the projection kernel.
+the raster kernels B1-B4 and the projection kernels P1 and P2.
 
 Marked `cuda`: these tests skip on a host without a CUDA device (a CUDA
 kernel has no CPU mode).  This file imports no JAX, so on a GPU host that
@@ -337,10 +337,58 @@ def test_projection_kernel_matches_plain_on_card(cuda, color_mode,
     _assert_projection_matches(got, want, g.rotation)
 
 
+def _assert_gradients_match(got, g, camera, cotangents, kw, name):
+    """chip_smoke.py's `gate_projection_bwd`: P2's gradients finite, at
+    their parameters' dtype and shape, exactly 0 on the rows the chain's
+    guard drops, within 5e-5 of `project_bwd_plain`'s by each leaf's norm,
+    and no farther from the float64 chain than 1.5 times the float32
+    chain's own distance (plus 1e-6), given the cotangents of the rows the
+    guard keeps."""
+    import chip_smoke
+    return chip_smoke.gate_projection_bwd(got, g, camera, cotangents, kw,
+                                          name)
+
+
+@pytest.mark.parametrize("options", ["default", "other"])
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("color_mode,sh_degree", [
+    ("dc_sigmoid", 0), ("sh", 0), ("sh", 1), ("sh", 2), ("sh", 3)])
+def test_projection_bwd_kernel_matches_plain_on_card(cuda, color_mode,
+                                                     sh_degree, antialias,
+                                                     options):
+    """One launch of `project_bwd` (P2) with standard normal cotangents on
+    every row, visible or not, against the plain VJP; dead rows, rows
+    behind the camera and rows at 0 < Z <= 1e-6 get exactly 0."""
+    import chip_smoke
+    g, camera = _projection_scene(cuda)
+    kw = dict(color_mode=color_mode, sh_degree=sh_degree,
+              antialias=antialias)
+    if options == "other":
+        kw.update(scale_modifier=1.3, radius_min=2.0, radius_max=20.0)
+    cots = chip_smoke.seeded_cotangents(g, 1)
+    before = pj.project_bwd.launches
+    got = pj.project_bwd(g, camera, cots, **kw)
+    assert pj.project_bwd.launches == before + 1
+    _assert_gradients_match(got, g, camera, cots, kw, "P2")
+    with torch.no_grad():
+        plain = pj.project_gaussians_plain(g, camera, **kw)
+    z, visible = plain.depth, plain.visible
+    dropped = {"dead": ~g.alive, "behind": z < 0,
+               "at 0 < Z <= 1e-6": (z > 0) & (z <= 1e-6)}
+    for what, rows in dropped.items():
+        assert bool(rows.any()), what
+        for k, v in got.items():
+            assert v is None or bool((v[rows] == 0).all()), (what, k)
+    near = chip_smoke.guarded_rows(g, camera, kw)
+    assert bool((near & ~visible).any()) and 100 < int(visible.sum())
+
+
 def test_projection_kernel_on_a_misaligned_slice_on_card(cuda):
     """A pool cut at slot 3 (features_rest no longer starts on 16 bytes,
-    so the kernel stages it with 4-byte loads), as the sharded renders cut
-    it, against the plain chain on the same slice."""
+    so P1 stages it and P2 stages it and stores its gradient with 4-byte
+    accesses), as the sharded renders and steps cut it, against the plain
+    chain and its VJP on the same slice."""
+    import chip_smoke
     g, camera = _projection_scene(cuda)
     part = g.slots(3, g.capacity - 5)
     assert part.features_rest.data_ptr() % 16
@@ -349,31 +397,51 @@ def test_projection_kernel_on_a_misaligned_slice_on_card(cuda):
         got = pj.project_fwd(part, camera, **kw)
         want = pj.project_gaussians_plain(part, camera, **kw)
     _assert_projection_matches(got, want, part.rotation)
+    cots = chip_smoke.seeded_cotangents(part, 2)
+    _assert_gradients_match(pj.project_bwd(part, camera, cots, **kw), part,
+                            camera, cots, kw, "P2 misaligned")
 
 
 def test_projection_with_grad_takes_the_chain_on_card(cuda):
-    """Parameters that require grad, with grad mode on, take the autograd
-    chain: no launch, the chain's outputs and gradients bit for bit.  Under
-    no_grad the same parameters launch the kernel."""
+    """Parameters that require grad, with grad mode on, take
+    `_ProjectGraph`: one P1 launch forward, outputs bit for bit
+    `project_fwd`'s, and one P2 launch backward, gradients as the chain's
+    (a loss over the visible rows, so every other row's cotangent is 0),
+    held by chip_smoke.py's `gate_gradients`.
+    A camera that requires grad takes the chain: no launch, the chain's
+    outputs and gradients bit for bit."""
+    import chip_smoke
     g, camera = _projection_scene(cuda)
     kw = dict(color_mode="sh", sh_degree=3, antialias=True)
 
-    def grads(fn):
+    def grads(fn, cam, pool=g):
         params = {k: v.clone().requires_grad_(True)
-                  for k, v in g.params().items()}
-        p = fn(g.with_params(params), camera, **kw)
+                  for k, v in pool.params().items()}
+        p = fn(pool.with_params(params), cam, **kw)
         loss = (p.means2d.sum(-1) + p.conic.sum(-1) + p.color.sum(-1)
                 + p.opacity + p.depth)[p.visible].sum()
-        return p, torch.autograd.grad(loss, list(params.values()))
+        return p, dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
 
-    before = pj.project_fwd.launches
-    got, got_grads = grads(pj.project_gaussians)
-    assert pj.project_fwd.launches == before
-    want, want_grads = grads(pj.project_gaussians_plain)
-    for a, b in zip((*got, *got_grads), (*want, *want_grads)):
-        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+    launches = lambda: (pj.project_fwd.launches, pj.project_bwd.launches)
+    before = launches()
+    got, got_grads = grads(pj.project_gaussians, camera)
+    assert launches() == (before[0] + 1, before[1] + 1)
     with torch.no_grad():
-        leaf = g.with_params({k: v.clone().requires_grad_(True)
-                              for k, v in g.params().items()})
-        pj.project_gaussians(leaf, camera, **kw)
-    assert pj.project_fwd.launches == before + 1
+        want = pj.project_fwd(g, camera, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)
+    _, chain_grads = grads(pj.project_gaussians_plain, camera)
+    g64, camera64 = chip_smoke.float64_pair(g, camera)
+    _, chain64_grads = grads(pj.project_gaussians_plain, camera64, g64)
+    chip_smoke.gate_gradients(got_grads, chain_grads, chain64_grads,
+                              "P1 + P2")
+    cam = camera.replace(
+        view_matrix=camera.view_matrix.clone().requires_grad_(True))
+    before = launches()
+    got, got_grads = grads(pj.project_gaussians, cam)
+    assert launches() == before
+    want, want_grads = grads(pj.project_gaussians_plain, cam)
+    for a, b in zip((*got, *got_grads.values()),
+                    (*want, *want_grads.values())):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=0.0, equal_nan=True)

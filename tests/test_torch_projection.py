@@ -163,3 +163,92 @@ def test_project_fwd_rejects_what_the_kernel_does_not_take(case):
     with pytest.raises(ValueError, match=message):
         tproj.project_fwd(g, camera, **kw)
     assert tproj.project_fwd.launches == before
+
+
+def test_project_bwd_rejects_what_the_kernel_does_not_take():
+    """P2's wrapper and the graph route check their inputs as P1's does,
+    before they load the library: CPU tensors always raise."""
+    before = (tproj.project_fwd.launches, tproj.project_bwd.launches)
+    for case in ("cpu", "float64", "rest_rows", "alive_dtype", "strided",
+                 "camera_dtype", "devices", "color_mode"):
+        g, camera, kw, message = _bad_inputs(case)
+        cots = (None,) * len(tproj.COTANGENT_FIELDS)
+        with pytest.raises(ValueError, match=message):
+            tproj.project_bwd(g, camera, cots, **kw)
+        with pytest.raises(ValueError, match=message):
+            tproj.project_graph(g, camera, **kw)
+    assert (tproj.project_fwd.launches, tproj.project_bwd.launches) == before
+
+
+@pytest.mark.parametrize("requires_grad", ["none", "params", "camera",
+                                           "both"])
+def test_route_rule_on_cpu_tensors(monkeypatch, requires_grad):
+    """CPU tensors take the plain chain whatever requires grad, and a graph
+    through the camera keeps its gradient: no kernel wrapper runs (each is
+    replaced by one that records its call)."""
+    calls = []
+
+    def record(name):
+        def wrapper(*args, **kw):
+            calls.append(name)
+            raise AssertionError(f"{name} ran on CPU tensors")
+        return wrapper
+
+    for name in ("project_fwd", "project_graph", "project_bwd"):
+        monkeypatch.setattr(tproj, name, record(name))
+    g, camera = _pool()
+    if requires_grad in ("params", "both"):
+        g = g.with_params({k: v.clone().requires_grad_(True)
+                           for k, v in g.params().items()})
+    if requires_grad in ("camera", "both"):
+        camera = camera.replace(
+            view_matrix=camera.view_matrix.clone().requires_grad_(True))
+    kw = dict(color_mode="sh", sh_degree=3, antialias=True)
+    got = tproj.project_gaussians(g, camera, **kw)
+    assert calls == []
+    want = tproj.project_gaussians_plain(g, camera, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if requires_grad in ("camera", "both"):
+        (d_view,) = torch.autograd.grad(got.means2d.sum(),
+                                        [camera.view_matrix])
+        assert bool(d_view.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("antialias", [False, True])
+@pytest.mark.parametrize("color_mode,sh_degree", [
+    ("dc_sigmoid", 0), ("sh", 0), ("sh", 1), ("sh", 2), ("sh", 3)])
+def test_project_bwd_plain_is_the_chains_vjp(color_mode, sh_degree,
+                                             antialias):
+    """`project_bwd_plain` with standard normal cotangents on every row
+    equals the gradients of sum(field * cotangent) through the chain, taken
+    by `backward` into the leaves; a cotangent of None counts as 0, and the
+    SH rest has no gradient under "dc_sigmoid" (the chain does not read
+    it)."""
+    g, camera = _pool()
+    kw = dict(color_mode=color_mode, sh_degree=sh_degree,
+              antialias=antialias)
+    gen = torch.Generator().manual_seed(7)
+    C = g.capacity
+    cots = tuple(torch.randn(*shape, generator=gen)
+                 for shape in ((C, 2), (C, 3), (C,), (C, 3), (C,)))
+    got = tproj.project_bwd_plain(g, camera, cots, **kw)
+    leaves = {k: v.clone().requires_grad_(True)
+              for k, v in g.params().items()}
+    p = tproj.project_gaussians_plain(g.with_params(leaves), camera, **kw)
+    sum((getattr(p, f) * t).sum()
+        for f, t in zip(tproj.COTANGENT_FIELDS, cots)).backward()
+    assert set(got) == set(leaves)
+    for k, leaf in leaves.items():
+        if color_mode == "dc_sigmoid" and k == "features_rest":
+            assert got[k] is None and leaf.grad is None
+            continue
+        assert got[k].shape == leaf.shape
+        torch.testing.assert_close(got[k], leaf.grad, rtol=1e-6, atol=0.0)
+    no_depth = tproj.project_bwd_plain(
+        g, camera, cots[:2] + (None,) + cots[3:], **kw)
+    zero_depth = tproj.project_bwd_plain(
+        g, camera, cots[:2] + (torch.zeros(C),) + cots[3:], **kw)
+    for k, v in no_depth.items():
+        assert (v is None and zero_depth[k] is None) or torch.equal(
+            v, zero_depth[k])

@@ -169,7 +169,7 @@ def test_library_name_follows_the_headers(tmp_path):
     first = rc.library_path(csrc)
     assert first == rc.library_path() and first.parent == rc.BUILD_DIR
     assert [p.name for p in rc.kernel_sources(csrc)] == [
-        "project_fwd.cu", "raster_bwd.cu", "raster_fwd.cu"]
+        "project_bwd.cu", "project_fwd.cu", "raster_bwd.cu", "raster_fwd.cu"]
     header = csrc / "raster_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     second = rc.library_path(csrc)

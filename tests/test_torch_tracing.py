@@ -176,12 +176,13 @@ def test_instances_counter_is_n_live():
 
 def test_projection_kernel_counter_only_where_it_launches():
     """On CPU tensors the projection runs the plain chain: the recording
-    holds no `projection_kernel` count (the card's test holds 1 a render
-    and none in a train step)."""
+    holds no `projection_kernel` or `projection_bwd_kernel` count (the
+    card's tests hold 1 P1 a render, and 1 P1 and 1 P2 a train step)."""
     with profiling.recording(device="cpu") as rec:
         _render()
         _train_step()
     assert "projection_kernel" not in rec.counters()
+    assert "projection_bwd_kernel" not in rec.counters()
     assert rec.counters()["instances"] > 0
 
 
@@ -278,10 +279,15 @@ def test_syncs_and_walls_on_the_card(card):
 
 @pytest.mark.cuda
 def test_train_step_keeps_the_projection_chain_on_the_card(card):
-    """A train step needs the projection's graph: it launches no projection
-    kernel, and its recording counts none."""
+    """A train step needs the projection's graph: it takes `_ProjectGraph`,
+    and its recording counts one P1 (`projection_kernel`) and one P2
+    (`projection_bwd_kernel`) launch; a render counts no P2."""
     _train_step(card)  # builds the kernels
     with profiling.recording() as rec:
         _train_step(card)
-    assert "projection_kernel" not in rec.counters()
+    assert rec.counters()["projection_kernel"] == 1
+    assert rec.counters()["projection_bwd_kernel"] == 1
+    with profiling.recording() as rec:
+        _render(card)
+    assert "projection_bwd_kernel" not in rec.counters()
     assert rec.counters()["raster_fwd.launches"] == 1
