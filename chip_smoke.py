@@ -126,6 +126,23 @@ BWD_ALPHA_OPS = 16
 # Backward, further, where also w < 1: d_lw 2; the five geometric terms 20.
 BWD_GEOM_OPS = 22
 N_ACC_ROWS = 8  # rows of the accumulators a forward launch writes
+# The kernels' running launch totals (ops/cuda_library.LAUNCHES): the raster
+# builds without (B1, B2) and with t0 (B3, B4), and the projection's P1, P2.
+B1, B2 = "raster_fwd.launches", "raster_bwd.launches"
+B3, B4 = "raster_fwd.launches_t0", "raster_bwd.launches_t0"
+P1, P2 = "project_fwd.launches", "project_bwd.launches"
+
+
+def launched(*totals) -> tuple:
+    """The running launch totals named, in order."""
+    from mini3dgs_tpu_torch.ops.cuda_library import LAUNCHES
+    return tuple(LAUNCHES[t] for t in totals)
+
+
+def zero_launches(*totals) -> None:
+    """Set the running launch totals named to 0."""
+    from mini3dgs_tpu_torch.ops.cuda_library import LAUNCHES
+    LAUNCHES.update(dict.fromkeys(totals, 0))
 
 
 def gate(a: torch.Tensor, b: torch.Tensor, name: str) -> float:
@@ -958,7 +975,6 @@ def trainer_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
     import main_torch
     from mini3dgs_tpu_torch.config import ConfigManager
     from mini3dgs_tpu_torch.core.gaussians import compact_capacity
-    from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops.renderer import RenderSettings
     from mini3dgs_tpu_torch.train import checkpoint as ckpt
     from mini3dgs_tpu_torch.train import density
@@ -1004,12 +1020,12 @@ def trainer_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
     def entry(fn, argv):
         """(return code, stdout, MethodTimes) of one entry-point call, the
         kernels' counts set to 0 just before it and read just after."""
-        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+        zero_launches(B1, B2)
         buf = io.StringIO()
         with MethodTimes(GaussianTrainer, names, dev) as mt, \
                 contextlib.redirect_stdout(buf):
             code = fn(argv)
-        mt.launches = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+        mt.launches = launched(B1, B2)
         return code, buf.getvalue(), mt
 
     base = ["--config", str(cfg_path), "--device", dev.type]
@@ -1132,7 +1148,6 @@ def texture_scene_phase(dev, workdir: Path, size: int = VIEW_SIZE,
     import main_torch
     from mini3dgs_tpu_torch.config import ConfigManager
     from mini3dgs_tpu_torch.data import synthetic
-    from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
 
     R, T = synthetic.camera_pose(0.3, 0.6, 3.6)
@@ -1177,12 +1192,12 @@ def texture_scene_phase(dev, workdir: Path, size: int = VIEW_SIZE,
         densify_until_iter=150, sh_increase_interval=50, device=dev.type)
     cfg_path = workdir / "config.yaml"
     ConfigManager.save_to_yaml(cfg, str(cfg_path))
-    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    zero_launches(B1, B2)
     buf = io.StringIO()
     with MethodTimes(GaussianTrainer, ["setup", "train_step"], dev) as mt, \
             contextlib.redirect_stdout(buf):
         code = main_torch.main(["--config", str(cfg_path)])
-    launches = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+    launches = launched(B1, B2)
     text = buf.getvalue()
     tr = mt.objects[0]
     log = parse_log(text)
@@ -1406,15 +1421,13 @@ def mesh_entry_phase(dev, g, n_points: int, size: int, workdir: Path,
         raise AssertionError("the written config does not read back")
 
     def entry(argv):
-        for f in (rc.raster_fwd, rc.raster_bwd):
-            f.launches = f.launches_t0 = 0
+        zero_launches(B1, B2, B3, B4)
         buf = io.StringIO()
         names = ["setup", "train_step"]
         with MethodTimes(GaussianTrainer, names, dev) as mt, \
                 contextlib.redirect_stdout(buf):
             code = main_torch.main(argv)
-        mt.launches = (rc.raster_fwd.launches, rc.raster_bwd.launches,
-                       rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+        mt.launches = launched(B1, B2, B3, B4)
         return code, buf.getvalue(), mt
 
     base = ["--config", str(cfg_path)]
@@ -1583,12 +1596,10 @@ def ring_routes_phase(rc, dev, state, config, settings, cam) -> dict:
     Cs = C // n
 
     def counts():
-        return (rc.raster_fwd.launches, rc.raster_bwd.launches,
-                rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+        return launched(B1, B2, B3, B4)
 
     def zero_counts():
-        for f in (rc.raster_fwd, rc.raster_bwd):
-            f.launches = f.launches_t0 = 0
+        zero_launches(B1, B2, B3, B4)
 
     # ---- (a) the renders: the same projected sets through each route ----
     with torch.no_grad():
@@ -2079,19 +2090,18 @@ def graft_entry_phase(rc, dev) -> dict:
     import graft_entry_torch as ge
 
     t0 = time.perf_counter()
-    before = rc.raster_fwd.launches
+    before = launched(B1)[0]
     fn, args = ge.entry()
     image = fn(*args)
     torch.cuda.synchronize()
     entry = {"shape": list(image.shape), "mean": float(image.mean()),
-             "launches": rc.raster_fwd.launches - before,
+             "launches": launched(B1)[0] - before,
              "seconds": time.perf_counter() - t0}
     if entry["shape"] != [3, 256, 256] or not bool(
             torch.isfinite(image).all()) or entry["launches"] != 1:
         raise AssertionError(f"20: entry() {entry}")
     t1 = time.perf_counter()
-    before = (rc.raster_fwd.launches, rc.raster_bwd.launches,
-              rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+    before = launched(B1, B2, B3, B4)
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         losses = ge.dryrun_multichip(8)
     record = json.loads((REPO / "docs" / "artifacts" /
@@ -2100,8 +2110,7 @@ def graft_entry_phase(rc, dev) -> dict:
     dryrun = {"losses": losses, "rel_to_jax": rel,
               "printed": printed.getvalue().strip(),
               "launches": [a - b for a, b in zip(
-                  (rc.raster_fwd.launches, rc.raster_bwd.launches,
-                   rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0),
+                  launched(B1, B2, B3, B4),
                   before)],
               "seconds": time.perf_counter() - t1}
     if list(losses) != list(record["losses"]) or not all(
@@ -2115,8 +2124,7 @@ def graft_entry_phase(rc, dev) -> dict:
 def recording_launches(rc, keep: list):
     """Append to `keep` (name, arguments, output) of every launch of
     `raster_fwd` and `raster_bwd` without t0 while the block runs.  The
-    wrappers stand in for the module's functions and carry their launch
-    counters over."""
+    wrappers stand in for the module's functions."""
     origs = {name: getattr(rc, name) for name in ("raster_fwd", "raster_bwd")}
     wrappers = {}
     for name, orig in origs.items():
@@ -2129,16 +2137,11 @@ def recording_launches(rc, keep: list):
                 keep.append((_name, call, out.detach()))
             return out
 
-        wrapped.launches, wrapped.launches_t0 = orig.launches, \
-            orig.launches_t0
-        wrappers[name] = wrapped
         setattr(rc, name, wrapped)
     try:
         yield
     finally:
         for name, orig in origs.items():
-            orig.launches = wrappers[name].launches
-            orig.launches_t0 = wrappers[name].launches_t0
             setattr(rc, name, orig)
 
 
@@ -2179,13 +2182,13 @@ def bench_phase(rc, dev, trained_yaml: Path) -> dict:
     out, err = io.StringIO(), io.StringIO()
     env = {k: v for k, v in os.environ.items() if k not in (
         "BENCH_FULL_GOLDEN", "BENCH_SKIP_TRAINED")}
-    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    zero_launches(B1, B2)
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, env, clear=True), \
             contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         code = bt.main(["--trained-config", str(trained_yaml)])
     res["main_seconds"] = time.perf_counter() - t0
-    res["launches"] = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+    res["launches"] = launched(B1, B2)
     res["stderr"] = err.getvalue().strip()
     lines = out.getvalue().strip().splitlines()
     if code != 0 or len(lines) != 1:
@@ -2247,7 +2250,7 @@ def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
         raise AssertionError("the Blender scene was not written")
 
     def run_script(name, argv):
-        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+        zero_launches(B1, B2)
         buf = io.StringIO()
         with MethodTimes(GaussianTrainer, ["setup"], dev) as mt, \
                 contextlib.redirect_stdout(buf):
@@ -2256,7 +2259,7 @@ def entry_scripts_phase(dev, workdir: Path, n_points: int = 1_000_000,
         if code != 0:
             raise AssertionError(f"{name} failed:\n{buf.getvalue()}")
         return (json.loads(lines[-1]), mt.objects[0],
-                (rc.raster_fwd.launches, rc.raster_bwd.launches), lines)
+                launched(B1, B2), lines)
 
     one, tr, launches_1m, lines = run_script("train_1m_torch", [
         "--scene", str(scene), "--iters", "40", "--steady", "20",
@@ -2371,6 +2374,7 @@ def main() -> int:
     from mini3dgs_tpu_torch.config import TrainingConfig
     from mini3dgs_tpu_torch.core.gaussians import scene_extent_of
     from mini3dgs_tpu_torch.core.loss import gaussian_loss
+    from mini3dgs_tpu_torch.ops import cuda_library as cl
     from mini3dgs_tpu_torch.ops import projection as pj
     from mini3dgs_tpu_torch.ops import raster_cuda as rc
     from mini3dgs_tpu_torch.ops import raster_ref
@@ -2393,14 +2397,14 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(f"[1 device] {kind} | nvidia-smi: {smi} | torch {torch.__version__}"
-          f" cuda {torch.version.cuda} | nvcc {rc._nvcc()}", flush=True)
+          f" cuda {torch.version.cuda} | nvcc {cl._nvcc()}", flush=True)
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
-    lib = rc.kernel_library()
-    sources = [str(p.relative_to(REPO)) for p in rc.kernel_sources()]
+    lib = cl.kernel_library()
+    sources = [str(p.relative_to(REPO)) for p in cl.kernel_sources()]
     print(f"[2 build] {lib.path.relative_to(REPO)} from {sources} "
-          f"({' '.join(rc.NVCC_FLAGS)}): nvcc {lib.build_seconds:.2f} s, "
+          f"({' '.join(cl.NVCC_FLAGS)}): nvcc {lib.build_seconds:.2f} s, "
           f"load {time.perf_counter() - t0:.2f} s", flush=True)
     for line in lib.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line \
@@ -2416,7 +2420,7 @@ def main() -> int:
 
     # ---- 3. forward kernel vs plain on the card -----------------------
     print("[3 forward kernel vs plain]", flush=True)
-    launches_before = rc.raster_fwd.launches
+    launches_before = launched(B1)[0]
     edge = {}
     for ts in rc.KERNEL_TILE_SIZES:
         tiles_x, tiles_y = 800 // ts // 2, 600 // ts // 2
@@ -2457,11 +2461,11 @@ def main() -> int:
     fwd_patch_err = max(check_fwd_patch_cases(rc, ts, dev, False, rows)
                         for ts in rc.KERNEL_TILE_SIZES
                         for rows in patch_tile_rows(dev))
-    print(f"  launches in phase 3: {rc.raster_fwd.launches - launches_before}")
+    print(f"  launches in phase 3: {launched(B1)[0] - launches_before}")
 
     # ---- 3b. backward kernel vs plain on the card ---------------------
     print("[3b backward kernel vs plain]", flush=True)
-    launches_before = rc.raster_bwd.launches
+    launches_before = launched(B2)[0]
     for name, cases in (("edge", edge), ("ragged", ragged)):
         for ts, (stream, start, count, tiles_x, _, acc_k) in cases.items():
             args = (stream, start, count, tiles_x, ts, acc_k,
@@ -2496,7 +2500,7 @@ def main() -> int:
     patch_err = max(check_patch_cases(rc, ts, dev, False)
                     for ts in rc.KERNEL_TILE_SIZES)
     print(f"  launches in phase 3b: "
-          f"{rc.raster_bwd.launches - launches_before}")
+          f"{launched(B2)[0] - launches_before}")
 
     # ---- 3c. render gradients vs the golden's autograd ----------------
     print("[3c render gradients vs golden autograd]", flush=True)
@@ -2720,18 +2724,17 @@ def main() -> int:
     with torch.no_grad():
         render(g, cams[0], settings)  # warm-up (allocator, kernel load)
         torch.cuda.synchronize()
-        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
-        pj.project_fwd.launches = pj.project_bwd.launches = 0
+        zero_launches(B1, B2, P1, P2)
         outs, render_ms = [], []
         for cam_v in cams:
             t0 = time.perf_counter()
             outs.append(render(g, cam_v, settings))
             torch.cuda.synchronize()
             render_ms.append((time.perf_counter() - t0) * 1e3)
-        render_launches = rc.raster_fwd.launches
-        p1_render_launches = pj.project_fwd.launches
-        p2_render_launches = pj.project_bwd.launches
-    if render_launches != len(cams) or rc.raster_bwd.launches != 0:
+        render_launches = launched(B1)[0]
+        p1_render_launches = launched(P1)[0]
+        p2_render_launches = launched(P2)[0]
+    if render_launches != len(cams) or launched(B2)[0] != 0:
         raise AssertionError(f"render launched the forward kernel "
                              f"{render_launches} times for {len(cams)} views")
     if (p1_render_launches, p2_render_launches) != (len(cams), 0):
@@ -2781,13 +2784,13 @@ def main() -> int:
         ply = tmp / "flagship.ply"
         export_gaussians_ply(g, str(ply))
         mod = load_script("render_novel_view_torch")
-        rc.raster_fwd.launches = 0
+        zero_launches(B1)
         rc_main = mod.main(["--ply", str(ply), "--output", str(tmp / "out"),
                             "--n-frames", "2", "--size", str(VIEW_SIZE),
                             "--sh-degree", "3", "--color-mode", "sh",
                             "--tile-size", "32", "--bg", "1,1,1",
                             "--device", "cuda"])
-        if rc_main != 0 or rc.raster_fwd.launches != 2:
+        if rc_main != 0 or launched(B1)[0] != 2:
             raise AssertionError("entry point did not render 2 frames "
                                  "through the kernel")
         for i in range(2):
@@ -2825,8 +2828,7 @@ def main() -> int:
     state, _ = trainer.train_step(state, train_cam, config, settings)  # warm
     state = trainer.create_train_state(g0, config)
     torch.cuda.synchronize()
-    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
-    pj.project_fwd.launches = pj.project_bwd.launches = 0
+    zero_launches(B1, B2, P1, P2)
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2835,13 +2837,13 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["total_loss"]))
-    train_launches = (rc.raster_fwd.launches, rc.raster_bwd.launches)
+    train_launches = launched(B1, B2)
     if train_launches != (TRAIN_STEPS, TRAIN_STEPS):
         raise AssertionError(f"{TRAIN_STEPS} train steps launched the "
                              f"kernels {train_launches} times")
-    # A train step projects through `_ProjectGraph`: one P1 and one P2.
-    p1_train_launches = pj.project_fwd.launches
-    p2_train_launches = pj.project_bwd.launches
+    # A train step records the projection op's graph: one P1 and one P2.
+    p1_train_launches = launched(P1)[0]
+    p2_train_launches = launched(P2)[0]
     if (p1_train_launches, p2_train_launches) != (TRAIN_STEPS, TRAIN_STEPS):
         raise AssertionError(f"{TRAIN_STEPS} train steps launched P1 / P2 "
                              f"{p1_train_launches} / {p2_train_launches} "
@@ -2928,7 +2930,7 @@ def main() -> int:
 
     # ---- 8. train entry point ----------------------------------------
     mod = load_script("train_torch")
-    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    zero_launches(B1, B2)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc_main = mod.main([
@@ -2939,7 +2941,7 @@ def main() -> int:
             "--device", "cuda"])
     log = [json.loads(x) for x in buf.getvalue().splitlines()]
     final = log[-1]
-    if rc_main != 0 or rc.raster_bwd.launches != 8 \
+    if rc_main != 0 or launched(B2)[0] != 8 \
             or "n_clone" not in log[-2] or log[-2]["sh_degree"] != 3 \
             or not final["last_loss"] < final["first_loss"] \
             or not np.isfinite([final["psnr_start"], final["psnr_end"]]).all():
@@ -2947,18 +2949,16 @@ def main() -> int:
     print(f"[8 train entry point] scripts/train_torch.py: 8 iterations at "
           f"{VIEW_SIZE}^2, SH unlocked to 3, densify {log[-2]['n_split']} split "
           f"{log[-2]['n_clone']} clone, backward launches "
-          f"{rc.raster_bwd.launches}: {json.dumps(final)}", flush=True)
+          f"{launched(B2)[0]}: {json.dumps(final)}", flush=True)
 
     # ---- 9. ring render at full width ---------------------------------
     # Five ranks on the one card: 5 bands of 160 rows, 5 depth-rank ranges
     # of a pool of 131,075 slots holding the same 100,000 Gaussians.
     def zero_counts():
-        rc.raster_fwd.launches = rc.raster_bwd.launches = 0
-        rc.raster_fwd.launches_t0 = rc.raster_bwd.launches_t0 = 0
+        zero_launches(B1, B2, B3, B4)
 
     def counts():
-        return (rc.raster_fwd.launches, rc.raster_bwd.launches,
-                rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+        return launched(B1, B2, B3, B4)
 
     n_rk = RING_RANKS
     r_params, r_alive, _ = convert.flagship_scene_numpy(RING_CAPACITY,
@@ -2974,14 +2974,14 @@ def main() -> int:
         ring_render(g_ring, bench_cam)  # warm-up
         torch.cuda.synchronize()
         zero_counts()
-        pj.project_fwd.launches = 0
+        zero_launches(P1)
         ring_ms = []
         t0 = time.perf_counter()
         out = ring_render(g_ring, bench_cam)
         torch.cuda.synchronize()
         ring_ms.append((time.perf_counter() - t0) * 1e3)
         ring_render_launches = counts()
-        p1_ring_launches = pj.project_fwd.launches
+        p1_ring_launches = launched(P1)[0]
         for _ in range(2):
             t0 = time.perf_counter()
             ring_render(g_ring, bench_cam)
@@ -3265,8 +3265,8 @@ def main() -> int:
             "--device", "cuda", "--tile-shards", str(n_rk), "--ring"])
     log = [json.loads(x) for x in buf.getvalue().splitlines()]
     final = log[-1]
-    if rc_main != 0 or rc.raster_bwd.launches_t0 != 4 * per_step \
-            or rc.raster_bwd.launches != 0 or "n_clone" not in log[-2] \
+    if rc_main != 0 or launched(B4)[0] != 4 * per_step \
+            or launched(B2)[0] != 0 or "n_clone" not in log[-2] \
             or not final["last_loss"] < final["first_loss"] \
             or not np.isfinite([final["psnr_start"], final["psnr_end"]]).all():
         raise AssertionError(f"the ring train entry point failed: {final}")
@@ -3274,7 +3274,7 @@ def main() -> int:
           f"{n_rk} --ring: 2 finite frames, {2 * per_step} forward launches "
           f"with t0; train_torch.py --tile-shards {n_rk} --ring: 4 "
           f"iterations, backward launches with t0 "
-          f"{rc.raster_bwd.launches_t0}: {json.dumps(final)}", flush=True)
+          f"{launched(B4)[0]}: {json.dumps(final)}", flush=True)
 
     # ---- 13. the trainer entry point at full width --------------------
     # main_torch.py on a COLMAP scene of the SH-3 set `g` of phase 4, with

@@ -8,17 +8,15 @@ Sigma_2D = J Sigma_cam J^T + 1e-6 I, conic = Sigma_2D^-1, radius =
 -r<=y<H+r, r>0.  The 3x3 products are written out per component in float32
 (no matmul), so no TF32 path can touch them on the GPU.
 
-`project_gaussians` takes one of three routes by what it is given.  CUDA
-tensors of which no autograd graph is needed (grad mode off, or no
-parameter or camera tensor requires grad) go through `project_fwd`, one
-launch of the hand-written kernel `csrc/project_fwd.cu` (P1): the viewer,
-the trainer's validation and evaluation renders, renders under `no_grad`.
-CUDA tensors whose graph differentiates parameters but no camera tensor (a
-train step) go through `_ProjectGraph`: P1 forward and one launch of
-`csrc/project_bwd.cu` (P2, `project_bwd`) backward.  Everything else (CPU
-tensors; a graph through the camera) runs `project_gaussians_plain`, the
-differentiable chain of PyTorch ops, which both kernels are held against on
-the card (P2 through `project_bwd_plain`).
+`project_gaussians` runs CUDA tensors through `project_fwd`: one autograd
+op whose forward is one launch of the hand-written kernel
+`csrc/project_fwd.cu` (P1) and whose backward is one launch of
+`csrc/project_bwd.cu` (P2, `project_bwd`); autograd records its graph where
+grad mode is on and a parameter requires grad (a train step), and nowhere
+else (the viewer, the trainer's validation and evaluation renders).  CPU
+tensors, and a graph through the camera, run `project_gaussians_plain`,
+the differentiable chain of PyTorch ops, which both kernels are held
+against on the card (P2 through `project_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -33,7 +31,7 @@ from ..core import sh as sh_lib
 from ..core.camera import Camera
 from ..core.gaussians import PARAM_NAMES, SH_REST, Gaussians
 from ..core.transforms import quat_to_rotmat_components
-from ..utils import profiling
+from .cuda_library import launch
 from .raster_ref import W_EPS
 
 # s >= dx^2/Sigma_xx, so |dx| > sqrt(2 ln(1/W_EPS) * a) means w < W_EPS;
@@ -60,17 +58,6 @@ def _dot3(u, v):
     return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
 
 
-def needs_graph(g: Gaussians, camera: Camera) -> bool:
-    """Whether the projection of `g` through `camera` has to record an
-    autograd graph: grad mode is on and a parameter or camera tensor
-    requires grad."""
-    if not torch.is_grad_enabled():
-        return False
-    tensors = (*g.params().values(), camera.view_matrix, camera.FoVx,
-               camera.FoVy)
-    return any(t.requires_grad for t in tensors)
-
-
 def camera_needs_grad(camera: Camera) -> bool:
     """Whether grad mode is on and a camera tensor requires grad."""
     return torch.is_grad_enabled() and any(
@@ -83,19 +70,16 @@ def project_gaussians(g: Gaussians, camera: Camera, *,
                       color_mode: str = "dc_sigmoid", sh_degree: int = 0,
                       scale_modifier: float = 1.0,
                       antialias: bool = False) -> Projected:
-    """The projected rows of every slot of `g`.  CUDA tensors that need no
-    graph launch P1 (`project_fwd`); CUDA tensors whose graph reaches the
-    parameters but not the camera take `_ProjectGraph` (P1, then P2 in the
-    backward); both raise on what the kernels do not take.  CPU tensors and
-    graphs through the camera run `project_gaussians_plain`."""
+    """The projected rows of every slot of `g`: `project_fwd` (P1, and P2
+    in the backward; it raises on what the kernels do not take) for CUDA
+    tensors, `project_gaussians_plain` for CPU tensors and for a graph
+    through the camera."""
     kw = dict(radius_min=radius_min, radius_max=radius_max,
               color_mode=color_mode, sh_degree=sh_degree,
               scale_modifier=scale_modifier, antialias=antialias)
     if g.xyz.device.type != "cuda" or camera_needs_grad(camera):
         return project_gaussians_plain(g, camera, **kw)
-    if not needs_graph(g, camera):
-        return project_fwd(g, camera, **kw)
-    return project_graph(g, camera, **kw)
+    return project_fwd(g, camera, **kw)
 
 
 def project_gaussians_plain(g: Gaussians, camera: Camera, *,
@@ -210,17 +194,6 @@ def project_gaussians_plain(g: Gaussians, camera: Camera, *,
                      ext_x=ext_x, ext_y=ext_y)
 
 
-class _ProjectFwd(torch.autograd.Function):
-    """The kernel's launch inside an op of its own, which takes and gives no
-    tensor.  torch.profiler links a kernel to the op that launched it; a
-    `record_function` range such as `3dgs:projection` is no op, so a kernel
-    launched from Python straight under it would count towards no stage."""
-
-    @staticmethod
-    def forward(ctx, launch):
-        return launch()
-
-
 def _check_fwd_args(g: Gaussians, camera: Camera) -> torch.device:
     """Raise on what the kernel does not take; returns the device."""
     C = g.xyz.shape[0]
@@ -266,64 +239,31 @@ def _degree(color_mode: str, sh_degree: int) -> int:
 
 
 def _inputs(g: Gaussians, camera: Camera) -> tuple:
-    """The ten tensors both kernels read, in their C interface's order."""
+    """The ten tensors both kernels read, in their C interface's order; the
+    camera's detached (the kernels give it no gradient)."""
     return (g.xyz, g.features_dc, g.features_rest, g.scaling, g.rotation,
-            g.opacity, g.alive, camera.view_matrix, camera.FoVx, camera.FoVy)
-
-
-def _launch_fwd(inputs: tuple, width: int, height: int, degree: int,
-                radius_min: float, radius_max: float, scale_modifier: float,
-                antialias: bool, in_op=lambda launch: launch()) -> Projected:
-    """One launch of P1 on checked `inputs` (`_inputs`' order), made by
-    `in_op` (`_ProjectFwd.apply` where no op encloses the call); counts it
-    in `project_fwd.launches` and the recording's `projection_kernel`."""
-    device = inputs[0].device
-    C = inputs[0].shape[0]
-    f32 = dict(dtype=torch.float32, device=device)
-    out = Projected(
-        means2d=torch.empty(C, 2, **f32), conic=torch.empty(C, 3, **f32),
-        depth=torch.empty(C, **f32), radius=torch.empty(C, **f32),
-        visible=torch.empty(C, dtype=torch.bool, device=device),
-        color=torch.empty(C, 3, **f32), opacity=torch.empty(C, **f32),
-        ext_x=torch.empty(C, **f32), ext_y=torch.empty(C, **f32))
-    from .raster_cuda import kernel_library
-    lib = kernel_library().lib
-    ptrs = [v.data_ptr() for v in inputs]
-
-    def launch():
-        with torch.cuda.device(device):
-            return lib.project_fwd_launch(
-                *ptrs, C, width, height, degree, int(antialias),
-                scale_modifier, radius_min, radius_max, CULL_SIGMA,
-                *(v.data_ptr() for v in out),
-                torch.cuda.current_stream(device).cuda_stream)
-
-    rc = in_op(launch)
-    if rc != 0:
-        raise RuntimeError(f"project_fwd kernel launch failed: CUDA error "
-                           f"{rc}")
-    project_fwd.launches += 1
-    profiling.count("projection_kernel", 1)
-    return out
+            g.opacity, g.alive, camera.view_matrix.detach(),
+            camera.FoVx.detach(), camera.FoVy.detach())
 
 
 def project_fwd(g: Gaussians, camera: Camera, *, radius_min: float = 0.01,
                 radius_max: float = 50.0, color_mode: str = "dc_sigmoid",
                 sh_degree: int = 0, scale_modifier: float = 1.0,
                 antialias: bool = False) -> Projected:
-    """`project_gaussians_plain` in one launch of `csrc/project_fwd.cu`,
-    without an autograd graph: the same `Projected`, field for field, at
-    the same shapes, dtypes and layout.  CUDA tensors only; raises on any
-    other input, and counts each launch in `project_fwd.launches` and in the
-    active recording's counter `projection_kernel`."""
+    """`project_gaussians_plain` in one launch of `csrc/project_fwd.cu`
+    (P1): the same `Projected`, field for field, at the same shapes, dtypes
+    and layout, differentiable with respect to the six parameter groups of
+    `g` through one launch of `csrc/project_bwd.cu` (P2) in the backward;
+    the camera is a constant to it.  CUDA tensors only; raises on any
+    other input.  Each launch counts in cuda_library.LAUNCHES
+    (`project_fwd.launches`, `project_bwd.launches`) and in the active
+    recording (`projection_kernel`, `projection_bwd_kernel`)."""
     degree = _degree(color_mode, sh_degree)
     _check_fwd_args(g, camera)
-    return _launch_fwd(_inputs(g, camera), camera.width, camera.height,
-                       degree, radius_min, radius_max, scale_modifier,
-                       antialias, in_op=_ProjectFwd.apply)
+    return Projected(*_Project.apply(
+        *_inputs(g, camera), camera.width, camera.height, degree,
+        radius_min, radius_max, scale_modifier, antialias))
 
-
-project_fwd.launches = 0
 
 # The cotangents P2 reads, by field of `Projected`; the other four fields
 # (radius, visible and the extents) are not differentiable.
@@ -336,8 +276,7 @@ def _launch_bwd(inputs: tuple, width: int, height: int, degree: int,
     """One launch of P2 on checked `inputs` and `cotangents` (tensors in
     COTANGENT_FIELDS' order, or None); returns the six gradients by
     parameter name, features_rest None for "dc_sigmoid" (the chain does not
-    read it).  Counts the launch in `project_bwd.launches` and the
-    recording's `projection_bwd_kernel`."""
+    read it)."""
     device = inputs[0].device
     C = inputs[0].shape[0]
     shapes = dict(means2d=(C, 2), conic=(C, 3), depth=(C,), color=(C, 3),
@@ -357,20 +296,9 @@ def _launch_bwd(inputs: tuple, width: int, height: int, degree: int,
     if degree < 0:
         grads["features_rest"] = None
     m = max(radius_min, radius_max)
-    from .raster_cuda import kernel_library
-    lib = kernel_library().lib
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
-        rc = lib.project_bwd_launch(
-            *(v.data_ptr() for v in inputs), C, width, height, degree,
-            int(antialias), scale_modifier, -m, width + m, height + m,
-            *map(ptr, cots), *(ptr(grads[k]) for k in PARAM_NAMES),
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"project_bwd kernel launch failed: CUDA error "
-                           f"{rc}")
-    project_bwd.launches += 1
-    profiling.count("projection_bwd_kernel", 1)
+    launch("project_bwd_launch", device, *inputs, C, width, height, degree,
+           int(antialias), scale_modifier, -m, width + m, height + m, *cots,
+           *(grads[k] for k in PARAM_NAMES))
     return grads
 
 
@@ -387,16 +315,13 @@ def project_bwd(g: Gaussians, camera: Camera, cotangents: tuple, *,
     camera, its centre within max(radius_min, radius_max) of the frame) and
     exactly 0 on every other row, where the chain's gradient is 0 whenever
     the row's cotangents are, as every consumer gives them.  CUDA tensors
-    only; raises on any other input, and counts each launch in
-    `project_bwd.launches` and in the recording's `projection_bwd_kernel`."""
+    only; raises on any other input.  Each launch counts as
+    `project_bwd.launches` and `projection_bwd_kernel`."""
     degree = _degree(color_mode, sh_degree)
     _check_fwd_args(g, camera)
     return _launch_bwd(_inputs(g, camera), camera.width, camera.height,
                        degree, radius_min, radius_max, scale_modifier,
                        antialias, tuple(cotangents))
-
-
-project_bwd.launches = 0
 
 
 def project_bwd_plain(g: Gaussians, camera: Camera, cotangents: tuple,
@@ -418,14 +343,16 @@ def project_bwd_plain(g: Gaussians, camera: Camera, cotangents: tuple,
     return dict(zip(params, grads))
 
 
-class _ProjectGraph(torch.autograd.Function):
-    """A train step's projection: P1 forward, inside this op (so the
-    profiler ties P1 to `3dgs:projection` as it ties `_ProjectFwd`), and P2
-    backward.  The forward's values are P1's on every row.  Where the chain
-    under a graph moves a row that cannot be visible to depth 1 (its conic,
-    radius and extents then differ from P1's), the row is invisible on both
-    routes: the raster never reads it, `accumulate_grad_stats` multiplies
-    its radius by `visible`, and P2 gives it a gradient of exactly 0, as the
+class _Project(torch.autograd.Function):
+    """`project_fwd`'s op: P1 forward, inside the op (torch.profiler links a
+    kernel to the op that launched it; a `record_function` range such as
+    `3dgs:projection` is no op, so a kernel launched from Python straight
+    under it would count towards no stage), and P2 backward.  The
+    forward's values are P1's on every row.  Where the chain under a graph
+    moves a row that cannot be visible to depth 1 (its conic, radius and
+    extents then differ from P1's), the row is invisible on both routes:
+    the raster never reads it, `accumulate_grad_stats` multiplies its
+    radius by `visible`, and P2 gives it a gradient of exactly 0, as the
     chain does for its cotangent of 0.  Saves its inputs, not copies, and
     no intermediate."""
 
@@ -435,11 +362,20 @@ class _ProjectGraph(torch.autograd.Function):
                 degree, radius_min, radius_max, scale_modifier, antialias):
         inputs = (xyz, features_dc, features_rest, scaling, rotation,
                   opacity, alive, view_matrix, fov_x, fov_y)
-        options = (width, height, degree, radius_min, radius_max,
-                   scale_modifier, antialias)
-        out = _launch_fwd(inputs, *options)
+        device, C = xyz.device, xyz.shape[0]
+        f32 = dict(dtype=torch.float32, device=device)
+        out = Projected(
+            means2d=torch.empty(C, 2, **f32), conic=torch.empty(C, 3, **f32),
+            depth=torch.empty(C, **f32), radius=torch.empty(C, **f32),
+            visible=torch.empty(C, dtype=torch.bool, device=device),
+            color=torch.empty(C, 3, **f32), opacity=torch.empty(C, **f32),
+            ext_x=torch.empty(C, **f32), ext_y=torch.empty(C, **f32))
+        launch("project_fwd_launch", device, *inputs, C, width, height,
+               degree, int(antialias), scale_modifier, radius_min,
+               radius_max, CULL_SIGMA, *out)
         ctx.save_for_backward(*inputs)
-        ctx.options = options
+        ctx.options = (width, height, degree, radius_min, radius_max,
+                       scale_modifier, antialias)
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(out.radius, out.visible, out.ext_x,
                                     out.ext_y)
@@ -452,17 +388,3 @@ class _ProjectGraph(torch.autograd.Function):
         g = _launch_bwd(ctx.saved_tensors, *ctx.options,
                         tuple(by_field[f] for f in COTANGENT_FIELDS))
         return (*(g[k] for k in PARAM_NAMES), *(None,) * 11)
-
-
-def project_graph(g: Gaussians, camera: Camera, *, radius_min: float = 0.01,
-                  radius_max: float = 50.0, color_mode: str = "dc_sigmoid",
-                  sh_degree: int = 0, scale_modifier: float = 1.0,
-                  antialias: bool = False) -> Projected:
-    """The projection as `_ProjectGraph`: P1's `Projected`, differentiable
-    with respect to the six parameter groups of `g` through P2.  CUDA
-    tensors only; raises on what the kernels do not take."""
-    degree = _degree(color_mode, sh_degree)
-    _check_fwd_args(g, camera)
-    return Projected(*_ProjectGraph.apply(
-        *_inputs(g, camera), camera.width, camera.height, degree,
-        radius_min, radius_max, scale_modifier, antialias))

@@ -2,9 +2,8 @@
 mini3dgs_tpu/ops/raster_pallas.py).
 
 `raster_fwd` and `raster_bwd` are the kernels' wrappers: on CUDA tensors
-they launch `csrc/raster_fwd.cu` and `csrc/raster_bwd.cu` (built with nvcc
-for sm_90a at first use into one library in `build/kernels/`, loaded with
-ctypes); on CPU tensors they run the plain PyTorch versions
+they launch `csrc/raster_fwd.cu` and `csrc/raster_bwd.cu` (through
+ops/cuda_library.py); on CPU tensors they run the plain PyTorch versions
 `raster_fwd_plain` and `raster_bwd_plain`, which compute the same function
 and are what the kernels are held against on the card.  `raster_op` joins
 the pair into one differentiable function, and `rasterize_tiles` is the
@@ -21,21 +20,14 @@ cover a band of whole tile rows.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils import profiling
 from . import binning as B
+from .cuda_library import launch
 from .projection import Projected
 from .raster_ref import EARLY_STOP_A, W_EPS
 
@@ -56,11 +48,6 @@ LANE_ROWS = 4
 # sum of its terms' sizes, lies above REJECT_L > -ln(1e-5).
 REJECT_L = 11.6
 REJECT_GUARD = 1e-4
-
-CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def instance_attrs(proj: Projected) -> torch.Tensor:
@@ -326,111 +313,6 @@ def patch_missed(stream: torch.Tensor, x0, y0, w: int, h: int) -> torch.Tensor:
     return missed
 
 
-class KernelLibrary(NamedTuple):
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # 0.0 when an up-to-date build was reused
-    build_log: str        # nvcc/ptxas output (registers, spills)
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
-                       "CUDA kernels cannot be built")
-
-
-def kernel_sources(csrc: Path = CSRC_DIR) -> list:
-    """The sources nvcc compiles, one object file each."""
-    return sorted(csrc.glob("*.cu"))
-
-
-def library_path(csrc: Path = CSRC_DIR) -> Path:
-    """Where the library built from `csrc` lives: its name carries a hash of
-    the nvcc flags and of every source and header (`*.cu`, `*.cuh`), so an
-    edit to any of them builds a new one.  Builds nothing."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in kernel_sources(csrc) + sorted(csrc.glob("*.cuh")):
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
-
-
-def _build(path: Path) -> str:
-    """Compile every source to an object file, all nvcc processes started
-    together, then link them into `path`.  Returns the compilers' output."""
-    nvcc = _nvcc()
-    sources = kernel_sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = f"{path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
-    tmp = BUILD_DIR / f"{stem}.tmp"
-    try:
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objs)]
-        log = "".join(proc.communicate()[0] for proc in procs)
-        for proc, src in zip(procs, sources):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} "
-                                   f"({proc.returncode}):\n{log}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{log}")
-        os.replace(tmp, path)
-    finally:
-        for f in (*objs, tmp):
-            f.unlink(missing_ok=True)
-    return log
-
-
-@functools.cache
-def kernel_library() -> KernelLibrary:
-    """Build (once per set of sources and flags) and load the library that
-    holds every kernel of `csrc/`."""
-    path = library_path()
-    seconds, log = 0.0, ""
-    if not path.exists():
-        t0 = time.perf_counter()
-        log = _build(path)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # (inst, n_live, tile_start, tile_count, num_tiles, tiles_x, tile_size,
-    #  tile0, ...)
-    head = [ptr, ctypes.c_longlong, ptr, ptr, i32, i32, i32, i32]
-    lib.raster_fwd_launch.argtypes = head + [ptr, ptr]
-    lib.raster_fwd_t0_launch.argtypes = head + [ptr, ptr, ptr]
-    # (..., gout, [t0,] d_inst, [dt0,] part_g, sync, stream)
-    lib.raster_bwd_launch.argtypes = head + [ptr] * 5
-    lib.raster_bwd_t0_launch.argtypes = head + [ptr] * 7
-    lib.raster_fwd_blocks_per_sm.argtypes = [i32, i32]
-    lib.raster_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
-    # (10 inputs, n, width, height, sh_degree, antialias, scale_modifier,
-    #  radius_min, radius_max, cull_sigma, 9 outputs, stream)
-    f32 = ctypes.c_float
-    lib.project_fwd_launch.argtypes = ([ptr] * 10 + [ctypes.c_longlong]
-                                       + [i32] * 4 + [f32] * 4
-                                       + [ptr] * 10)
-    # (10 inputs, n, width, height, sh_degree, antialias, scale_modifier,
-    #  the guard's three bounds, 5 cotangents, 6 gradients, stream)
-    lib.project_bwd_launch.argtypes = ([ptr] * 10 + [ctypes.c_longlong]
-                                       + [i32] * 4 + [f32] * 4
-                                       + [ptr] * 12)
-    for fn in (lib.raster_fwd_launch, lib.raster_fwd_t0_launch,
-               lib.raster_bwd_launch, lib.raster_bwd_t0_launch,
-               lib.raster_fwd_blocks_per_sm, lib.raster_bwd_blocks_per_sm,
-               lib.project_fwd_launch, lib.project_bwd_launch):
-        fn.restype = i32
-    return KernelLibrary(lib, path, seconds, log)
-
-
 def check_tile_ranges(n_inst, tile_start: torch.Tensor,
                       tile_count: torch.Tensor) -> None:
     """Raise when a tile range [start, start + count) reaches past the
@@ -504,8 +386,9 @@ def raster_fwd(stream: torch.Tensor, tile_start: torch.Tensor,
     [STREAM_ROWS, n_live]; block t covers image tile `tile0` + t.  With
     `t0` [T, 1, P] the transmittance starts there and row 5 is what it
     ends with.  CPU tensors take `raster_fwd_plain`; CUDA tensors launch
-    the kernel (and count the launch in `raster_fwd.launches`, or in
-    `raster_fwd.launches_t0` for the build with `t0`) or raise.
+    the kernel (counted as `raster_fwd.launches`, or as
+    `raster_fwd.launches_t0` for the build with `t0`: cuda_library.launch)
+    or raise.
     `ranges_checked` says the caller has held the tile ranges against the
     stream's length itself (`check_tile_ranges`, which waits for the
     device).  The kernel's output carries no autograd graph: `raster_op`
@@ -517,31 +400,15 @@ def raster_fwd(stream: torch.Tensor, tile_start: torch.Tensor,
         return raster_fwd_plain(stream, tile_start, tile_count, tiles_x,
                                 tile_size, t0, tile0)
     T = tile_start.shape[0]
-    lib = kernel_library().lib
     out = torch.empty(T, N_ACC, tile_size * tile_size, dtype=torch.float32,
                       device=device)
-    head = (stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
-            tile_count.data_ptr(), T, tiles_x, tile_size, tile0)
-    cuda_stream = torch.cuda.current_stream(device).cuda_stream
-    # The device of the tensors, not the current one, runs the kernel.
-    with torch.cuda.device(device):
-        if t0 is None:
-            rc = lib.raster_fwd_launch(*head, out.data_ptr(), cuda_stream)
-        else:
-            t0 = t0.contiguous()
-            rc = lib.raster_fwd_t0_launch(*head, t0.data_ptr(),
-                                          out.data_ptr(), cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {rc}")
+    head = (stream, stream.shape[1], tile_start, tile_count, T, tiles_x,
+            tile_size, tile0)
     if t0 is None:
-        raster_fwd.launches += 1
+        launch("raster_fwd_launch", device, *head, out)
     else:
-        raster_fwd.launches_t0 += 1
+        launch("raster_fwd_t0_launch", device, *head, t0.contiguous(), out)
     return out
-
-
-raster_fwd.launches = 0
-raster_fwd.launches_t0 = 0
 
 
 def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
@@ -552,8 +419,8 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
     """Gradient [STREAM_ROWS, n_live] of the instance stream from the
     cotangent `gout` [T, 8, P] of the forward accumulators `acc`; with
     `t0` the pair (d_stream, d_t0).  CPU tensors take `raster_bwd_plain`;
-    CUDA tensors launch the kernel (and count the launch in
-    `raster_bwd.launches`, or `raster_bwd.launches_t0`) or raise.  At tile
+    CUDA tensors launch the kernel (counted as `raster_bwd.launches`, or
+    `raster_bwd.launches_t0`) or raise.  At tile
     32 the kernel runs two or four blocks a tile and adds their partial
     rows itself, in a fixed order, through a scratch buffer of four times
     the stream's size.  The kernel does not read `acc`: it sums each
@@ -566,7 +433,6 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
     if device.type == "cpu":
         return raster_bwd_plain(stream, tile_start, tile_count, tiles_x,
                                 tile_size, acc, gout, t0, tile0)
-    lib = kernel_library().lib
     # Zero-filled: the kernel leaves the rows behind a tile's early exit,
     # and any column no tile range covers, unwritten.
     d_stream = torch.zeros_like(stream)
@@ -582,31 +448,16 @@ def raster_bwd(stream: torch.Tensor, tile_start: torch.Tensor,
                                device=device),
                    torch.zeros((1 + quads) * T, dtype=torch.int32,
                                device=device))
-    tail = (*(None if v is None else v.data_ptr() for v in scratch),
-            torch.cuda.current_stream(device).cuda_stream)
-    head = (stream.data_ptr(), stream.shape[1], tile_start.data_ptr(),
-            tile_count.data_ptr(), T, tiles_x, tile_size, tile0,
-            gout.data_ptr())
-    with torch.cuda.device(device):
-        if t0 is None:
-            rc = lib.raster_bwd_launch(*head, d_stream.data_ptr(), *tail)
-        else:
-            t0 = t0.contiguous()
-            d_t0 = torch.empty_like(t0)  # the kernel writes every element
-            rc = lib.raster_bwd_t0_launch(*head, t0.data_ptr(),
-                                          d_stream.data_ptr(),
-                                          d_t0.data_ptr(), *tail)
-    if rc != 0:
-        raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {rc}")
+    head = (stream, stream.shape[1], tile_start, tile_count, T, tiles_x,
+            tile_size, tile0, gout)
     if t0 is None:
-        raster_bwd.launches += 1
+        launch("raster_bwd_launch", device, *head, d_stream, *scratch)
         return d_stream
-    raster_bwd.launches_t0 += 1
+    t0 = t0.contiguous()
+    d_t0 = torch.empty_like(t0)  # the kernel writes every element
+    launch("raster_bwd_t0_launch", device, *head, t0, d_stream, d_t0,
+           *scratch)
     return d_stream, d_t0
-
-
-raster_bwd.launches = 0
-raster_bwd.launches_t0 = 0
 
 
 class _RasterOp(torch.autograd.Function):

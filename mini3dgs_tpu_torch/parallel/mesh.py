@@ -65,6 +65,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 
 @dataclass(frozen=True)
 class Remote:
@@ -157,6 +159,17 @@ def _to(x, device):
 # included, and the wait for the device's pending work and for the other
 # processes).
 TRAFFIC = {"calls": 0, "bytes": 0, "seconds": 0.0}
+profiling.declare(*(f"traffic.{k}" for k in TRAFFIC))
+
+
+def _traffic(calls: int, nbytes: int, t_start: float) -> None:
+    """Add an exchange that began at `t_start` (perf_counter) to TRAFFIC
+    and to the active recording's `traffic.*` counters."""
+    for k, v in (("calls", calls), ("bytes", nbytes),
+                 ("seconds", time.perf_counter() - t_start)):
+        TRAFFIC[k] += v
+        profiling.count(f"traffic.{k}", v)
+
 
 # A leaf that every differentiable exchange takes as an input.  It gives
 # the exchange an autograd node on a process that sends nothing which
@@ -341,9 +354,7 @@ def _exchange(messages: Sequence[tuple], flag: int = 0,
     recv = torch.empty(sum(b_in), dtype=torch.uint8, device=buf)
     dist.all_to_all_single(recv, payload, b_in, b_out, group=group)
     me = slot[dist.get_rank()]
-    TRAFFIC["calls"] += 3
-    TRAFFIC["bytes"] += 8 * (n - 1 + sum(n_out) - n_out[me]) \
-        + sum(b_out) - b_out[me]
+    sent = 8 * (n - 1 + sum(n_out) - n_out[me]) + sum(b_out) - b_out[me]
 
     out, off = [], 0
     for proc, src, dst, spec, shapes in records:
@@ -355,7 +366,7 @@ def _exchange(messages: Sequence[tuple], flag: int = 0,
             leaves.append(t)
             off += n
         out.append((proc, src, dst, spec, leaves))
-    TRAFFIC["seconds"] += time.perf_counter() - t_start
+    _traffic(3, sent, t_start)
     return out, flags
 
 
@@ -664,8 +675,6 @@ def all_reduce_sum(tensors: Sequence[Optional[torch.Tensor]],
     t_start = time.perf_counter()
     flat = torch.cat([t.reshape(-1) for t in live]).to(_buffer_device())
     dist.all_reduce(flat, group=_group(tuple(processes)))
-    TRAFFIC["calls"] += 1
-    TRAFFIC["bytes"] += flat.numel() * flat.element_size()
     out, at = [], 0
     for t in tensors:
         if t is None:
@@ -673,5 +682,5 @@ def all_reduce_sum(tensors: Sequence[Optional[torch.Tensor]],
             continue
         out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.device))
         at += t.numel()
-    TRAFFIC["seconds"] += time.perf_counter() - t_start
+    _traffic(1, flat.numel() * flat.element_size(), t_start)
     return out

@@ -32,11 +32,12 @@ inside it.  An anchor event recorded on the empty stream at the start,
 beside a host timestamp, puts the card's intervals on the host clock, late
 by the anchor's launch latency (a few microseconds) at most.
 
-Counters: what `count` adds (`instances`: the stream length binning
-emits; `grad_nonfinite`, by `count_nonfinite`: the entries of a train
-step's parameter gradients that are not finite), the raster launches
-(`raster_fwd.launches`, ...) and `parallel/mesh.TRAFFIC`, read as
-differences over the recording, and with `count_syncs=True` on a card
+Counters: what `count` adds where the work happens (`instances`: the
+stream length binning emits; `grad_nonfinite`, by `count_nonfinite`: the
+entries of a train step's parameter gradients that are not finite; each
+kernel launch, by ops/cuda_library.launch; `traffic.*`, each exchange of
+parallel/mesh.py), at 0 for each name a module `declare`d and nothing
+counted, and with `count_syncs=True` on a card
 `host_syncs`: the "synchronizing CUDA operation" warnings of
 `torch.cuda.set_sync_debug_mode("warn")`, each counted against the
 innermost stage open on the thread that synced, or `(none)`, and the
@@ -66,6 +67,7 @@ NO_STAGE = "(none)"
 SYNC_WARNING = "synchronizing CUDA operation"
 
 _active: Optional["Recording"] = None  # the recording in progress
+_declared: Dict[str, int] = {}  # counters every recording starts at 0
 READY_EVENTS = 512  # timing events a recording on a card makes beforehand
 
 
@@ -162,6 +164,12 @@ def count(name: str, value) -> None:
         _active.counts[name] = _active.counts.get(name, 0) + value
 
 
+def declare(*names: str) -> None:
+    """Counters that every recording reports, at 0 where nothing counted
+    them."""
+    _declared.update(dict.fromkeys(names, 0))
+
+
 def count_nonfinite(name: str, tensors) -> None:
     """Add the entries of `tensors` (None skipped) that are not finite to
     the counter `name` of the active recording, if any; with none active it
@@ -186,18 +194,6 @@ class Span:
     events: Optional[tuple] = None   # CUDA events at entry and exit
     d0: Optional[float] = None       # the card's entry and exit (ns), on
     d1: Optional[float] = None       # the host clock, once resolved
-
-
-def _watched() -> Dict[str, float]:
-    """The program's running totals that a recording reads as
-    differences: raster launches and the mesh's exchange traffic."""
-    from ..ops import raster_cuda as RC
-    from ..parallel import mesh as M
-    out = {f"{f}.{a}": getattr(getattr(RC, f), a)
-           for f in ("raster_fwd", "raster_bwd")
-           for a in ("launches", "launches_t0")}
-    out.update({f"traffic.{k}": v for k, v in M.TRAFFIC.items()})
-    return out
 
 
 def _covered(start, end, intervals) -> float:
@@ -234,8 +230,6 @@ class Recording:
         self._anchor = None
         self._ready: list = []       # created timing events, not yet used
         self._origin = 0
-        self._base: Dict[str, float] = {}
-        self._diff: Dict[str, float] = {}
         self._restore = None
 
     # -- while active ----------------------------------------------------
@@ -304,7 +298,7 @@ class Recording:
             torch.cuda.synchronize(self.device)
             self._anchor = self._recorded(stream)
         self._origin = time.perf_counter_ns()
-        self._base = _watched()
+        self.counts = dict(_declared)
         if self.count_syncs and torch.cuda.is_available():
             self.sync_sites = {}
             caught = warnings.catch_warnings()
@@ -327,8 +321,6 @@ class Recording:
                 torch.cuda.set_sync_debug_mode(mode)
             finally:
                 caught.__exit__(*exc)
-        now = _watched()
-        self._diff = {k: now[k] - v for k, v in self._base.items()}
         self.counts = {k: v.item() if isinstance(v, torch.Tensor) else v
                        for k, v in self.counts.items()}
         if self.cuda:
@@ -387,10 +379,9 @@ class Recording:
         return out
 
     def counters(self, steps: Optional[int] = None) -> Dict[str, float]:
-        """Each counter a step: the counts, the watched totals' differences
-        and, where counted, `host_syncs`."""
+        """Each counter a step and, where counted, `host_syncs`."""
         n = max(steps if steps is not None else self.steps, 1)
-        out = {k: v / n for k, v in {**self._diff, **self.counts}.items()}
+        out = {k: v / n for k, v in self.counts.items()}
         if self.sync_sites is not None:
             out["host_syncs"] = sum(self.sync_sites.values()) / n
         return out

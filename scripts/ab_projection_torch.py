@@ -32,8 +32,8 @@ projection's fields from one real backward through binning, B1, the loss
 - holds P2 (`project_bwd`) against `project_bwd_plain` on those
   cotangents: each gradient's distance from the plain one by its norm;
 - times in turns (chain, kernels, kernels, chain) the chain's forward and
-  `torch.autograd.grad` against `project_gaussians` through
-  `_ProjectGraph` (P1, then P2 inside the same `autograd.grad`), and P2
+  `torch.autograd.grad` against `project_gaussians` through its one op
+  (P1, then P2 inside the same `autograd.grad`), and P2
   alone, against P2's bound: 513 bytes a Gaussian (237 + 40 in, 236 out)
   over 3.35 TB/s; with ptxas' report of P2's SH 3 build.
 
@@ -63,6 +63,7 @@ from harness import scene  # noqa: E402
 from mini3dgs_tpu_torch.core.camera import Camera  # noqa: E402
 from mini3dgs_tpu_torch.core.gaussians import Gaussians  # noqa: E402
 from mini3dgs_tpu_torch.ops import binning  # noqa: E402
+from mini3dgs_tpu_torch.ops import cuda_library as cl  # noqa: E402
 from mini3dgs_tpu_torch.ops import projection as pj  # noqa: E402
 from mini3dgs_tpu_torch.ops import raster_cuda as rc  # noqa: E402
 
@@ -165,7 +166,7 @@ def forward_turns(args, dev) -> dict:
             for i, (R, T) in enumerate(views.poses[::step][:args.views])]
     kw = dict(color_mode="sh", sh_degree=int(config["settings"]
                                               ["sh_degree"]))
-    built = rc.kernel_library()
+    built = cl.kernel_library()
     with torch.no_grad():
         check = parity(cams, g, kw)
         turns = time_turns(
@@ -208,7 +209,7 @@ def backward_turns(args, dev) -> dict:
     kw = dict(color_mode="sh", sh_degree=int(config["settings"]
                                               ["sh_degree"]))
     bg = torch.zeros(3, device=dev)
-    built = rc.kernel_library()
+    built = cl.kernel_library()
     with torch.no_grad():
         target = rc.rasterize_tiles(pj.project_gaussians(g, cams[1], **kw),
                                     H, W, bg, tile_size=TILE)["image"]

@@ -52,6 +52,7 @@ from mini3dgs_tpu_torch import convert  # noqa: E402
 from mini3dgs_tpu_torch.config import TrainingConfig  # noqa: E402
 from mini3dgs_tpu_torch.core.gaussians import scene_extent_of  # noqa: E402
 from mini3dgs_tpu_torch.core.loss import gaussian_loss  # noqa: E402
+from mini3dgs_tpu_torch.ops import cuda_library as cl  # noqa: E402
 from mini3dgs_tpu_torch.ops import raster_cuda as rc  # noqa: E402
 from mini3dgs_tpu_torch.ops.projection import project_gaussians  # noqa: E402
 from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render  # noqa: E402
@@ -80,9 +81,9 @@ def ptxas_lines(log: str):
 def build_other(source: Path) -> ctypes.CDLL:
     """Compile `source` alone into a library of its own; its includes are
     looked up in the tree's `csrc/` too."""
-    out = rc.BUILD_DIR / "ab" / f"{source.stem}.so"
+    out = cl.BUILD_DIR / "ab" / f"{source.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    done = subprocess.run([rc._nvcc(), *rc.NVCC_FLAGS, "-I", str(rc.CSRC_DIR),
+    done = subprocess.run([cl._nvcc(), *cl.NVCC_FLAGS, "-I", str(cl.CSRC_DIR),
                            "-shared", "-o", str(out), str(source)],
                           capture_output=True, text=True)
     if done.returncode != 0:
@@ -206,7 +207,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = card()
 
-    built = rc.kernel_library()
+    built = cl.kernel_library()
     print("the tree's kernels:")
     for line in ptxas_lines(built.build_log):
         print(f"    ptxas: {line}")

@@ -45,18 +45,16 @@ import torch
 
 import ab_raster_bwd_torch as ab
 
-chip_smoke, rc = ab.chip_smoke, ab.rc
+chip_smoke, cl, rc = ab.chip_smoke, ab.cl, ab.rc
 SIZE, RANKS = ab.SIZE, ab.RANKS
 
 
 def runner(lib: ctypes.CDLL, name: str):
     """A function with `rc.raster_fwd`'s arguments that launches `lib`'s
     forward kernel."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    head = [ptr, ctypes.c_longlong, ptr, ptr, i32, i32, i32, i32]
-    lib.raster_fwd_launch.argtypes = head + [ptr, ptr]
-    lib.raster_fwd_t0_launch.argtypes = head + [ptr, ptr, ptr]
-    lib.raster_fwd_launch.restype = lib.raster_fwd_t0_launch.restype = i32
+    for entry in ("raster_fwd_launch", "raster_fwd_t0_launch"):
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = cl.SIGNATURES[entry], ctypes.c_int
 
     def run(stream, start, count, tiles_x, ts, t0=None, tile0=0):
         T = start.shape[0]
@@ -129,7 +127,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = ab.card()
 
-    built = rc.kernel_library()
+    built = cl.kernel_library()
     print("the tree's kernels:")
     for line in ab.ptxas_lines(built.build_log):
         print(f"    ptxas: {line}")

@@ -225,7 +225,7 @@ def recording(keep: dict):
     """Keep in `keep` the arguments of the heaviest `raster_bwd` launch on
     the card, without ("bwd") and with ("bwd_t0") the incoming
     transmittance, while the block runs.  The wrapper stands in for the
-    module's function and carries its launch counters over."""
+    module's function."""
     orig = RC.raster_bwd
     names = list(inspect.signature(orig).parameters)
 
@@ -240,13 +240,10 @@ def recording(keep: dict):
                 keep[key] = call
         return out
 
-    wrapped.launches, wrapped.launches_t0 = orig.launches, orig.launches_t0
     RC.raster_bwd = wrapped
     try:
         yield
     finally:
-        orig.launches, orig.launches_t0 = wrapped.launches, \
-            wrapped.launches_t0
         RC.raster_bwd = orig
 
 

@@ -177,7 +177,7 @@ def main(argv=None) -> int:
     dump()
 
     import main_torch
-    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+    from mini3dgs_tpu_torch.ops.cuda_library import LAUNCHES
     from mini3dgs_tpu_torch.train.trainer import GaussianTrainer
 
     argv_main = ["--config", args.config, "--data", args.colmap,
@@ -200,12 +200,12 @@ def main(argv=None) -> int:
                       "ssim": m.get("ssim"), "at_s": v0 - t0,
                       "seconds": time.perf_counter() - v0,
                       "n_alive": self.state.gaussians.num_alive(),
-                      "launches_fwd": rc.raster_fwd.launches,
-                      "launches_bwd": rc.raster_bwd.launches})
+                      "launches_fwd": LAUNCHES["raster_fwd.launches"],
+                      "launches_bwd": LAUNCHES["raster_bwd.launches"]})
         dump()
         return m
 
-    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    LAUNCHES.update({"raster_fwd.launches": 0, "raster_bwd.launches": 0})
     GaussianTrainer.validate = timed_validate
     try:
         with contextlib.redirect_stdout(log):
@@ -214,8 +214,8 @@ def main(argv=None) -> int:
         GaussianTrainer.validate = validate
         log.close()
     summary.update(wall_s=time.perf_counter() - t0, rc=code,
-                   launches_fwd=rc.raster_fwd.launches,
-                   launches_bwd=rc.raster_bwd.launches)
+                   launches_fwd=LAUNCHES["raster_fwd.launches"],
+                   launches_bwd=LAUNCHES["raster_bwd.launches"])
 
     # mean step ms of each log interval, the evaluations inside it taken out
     steps = [(t, int(line[1:line.index("]")]), line) for t, line in log.lines

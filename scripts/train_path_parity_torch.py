@@ -91,7 +91,7 @@ def run_route(route: str, args, log=print, every_loss: bool = False) -> dict:
     import dataclasses
 
     import torch
-    from mini3dgs_tpu_torch.ops import raster_cuda as rc
+    from mini3dgs_tpu_torch.ops.cuda_library import LAUNCHES
     tr = make_trainer(args, route)
     if every_loss:
         tr.config = dataclasses.replace(tr.config, log_interval=1)
@@ -102,7 +102,7 @@ def run_route(route: str, args, log=print, every_loss: bool = False) -> dict:
         if it % 200 == 0:
             log(f"  [{route} {it:5d}] loss={m['total_loss']:.5f}")
 
-    rc.raster_fwd.launches = rc.raster_bwd.launches = 0
+    LAUNCHES.update({"raster_fwd.launches": 0, "raster_bwd.launches": 0})
     t0 = time.perf_counter()
     tr.train(log_fn=log_fn)
     if tr.device.type == "cuda":
@@ -111,8 +111,8 @@ def run_route(route: str, args, log=print, every_loss: bool = False) -> dict:
     m = tr.validate()
     res = {"psnr": m["psnr"], "ssim": m["ssim"], "seconds": seconds,
            "n_alive": int(tr.state.gaussians.num_alive()),
-           "launches_fwd": rc.raster_fwd.launches,
-           "launches_bwd": rc.raster_bwd.launches}
+           "launches_fwd": LAUNCHES["raster_fwd.launches"],
+           "launches_bwd": LAUNCHES["raster_bwd.launches"]}
     if every_loss:
         res["losses"] = [losses[it] for it in sorted(losses)]
     return res

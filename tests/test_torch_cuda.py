@@ -16,8 +16,17 @@ from mini3dgs_tpu_torch.core.camera import Camera
 from mini3dgs_tpu_torch.core.gaussians import Gaussians
 from mini3dgs_tpu_torch.ops import projection as pj
 from mini3dgs_tpu_torch.ops import raster_cuda as rc
+from mini3dgs_tpu_torch.ops.cuda_library import LAUNCHES
 
 pytestmark = pytest.mark.cuda
+FWD, BWD = "raster_fwd.launches", "raster_bwd.launches"
+FWD_T0, BWD_T0 = "raster_fwd.launches_t0", "raster_bwd.launches_t0"
+P1, P2 = "project_fwd.launches", "project_bwd.launches"
+
+
+def _launched(*totals) -> tuple:
+    """The running launch totals named (cuda_library.LAUNCHES)."""
+    return tuple(LAUNCHES[t] for t in totals)
 
 
 @pytest.fixture
@@ -48,9 +57,9 @@ def _stream(tile_size, tiles_x, tiles_y, device, seed=0):
 @pytest.mark.parametrize("tile_size", rc.KERNEL_TILE_SIZES)
 def test_kernel_matches_plain_on_card(cuda, tile_size):
     args = (*_stream(tile_size, 9, 7, cuda), 9, tile_size)
-    before = rc.raster_fwd.launches
+    before = _launched(FWD)
     got = rc.raster_fwd(*args)
-    assert rc.raster_fwd.launches == before + 1
+    assert _launched(FWD) == (before[0] + 1,)
     want = rc.raster_fwd_plain(*args)
     torch.cuda.synchronize()
     d = (got - want).abs()
@@ -76,10 +85,10 @@ def test_backward_kernel_matches_plain_on_card(cuda, tile_size):
     gen = torch.Generator(device=cuda).manual_seed(1)
     gout = torch.zeros_like(acc)
     gout[:, :5] = torch.randn(acc[:, :5].shape, generator=gen, device=cuda)
-    before = rc.raster_bwd.launches
+    before = _launched(BWD)
     got = rc.raster_bwd(*args, acc, gout)
     again = rc.raster_bwd(*args, acc, gout)
-    assert rc.raster_bwd.launches == before + 2
+    assert _launched(BWD) == (before[0] + 2,)
     want = rc.raster_bwd_plain(*args, acc, gout)
     torch.cuda.synchronize()
     assert got.shape == stream.shape and bool(torch.isfinite(got).all())
@@ -92,13 +101,12 @@ def test_kernel_pair_differentiates_a_stream_on_card(cuda):
     the gradient equals the plain backward's; other tile sizes are refused."""
     s, start, count = _stream(16, 4, 4, cuda)
     leaf = s.clone().requires_grad_(True)
-    fwd, bwd = rc.raster_fwd.launches, rc.raster_bwd.launches
+    fwd, bwd = _launched(FWD, BWD)
     acc = rc.raster_op(leaf, start, count, 4, 16)
     weights = torch.linspace(0.5, 1.5, acc[:, :5].numel(),
                              device=cuda).reshape(acc[:, :5].shape)
     (acc[:, :5] * weights).sum().backward()
-    assert (rc.raster_fwd.launches, rc.raster_bwd.launches) == (fwd + 1,
-                                                                bwd + 1)
+    assert _launched(FWD, BWD) == (fwd + 1, bwd + 1)
     gout = torch.zeros_like(acc)
     gout[:, :5] = weights
     want = rc.raster_bwd_plain(s, start, count, 4, 16, acc.detach(), gout)
@@ -131,8 +139,7 @@ def test_t0_kernels_match_plain_on_card(cuda, tile_size):
     args = (stream, start[tile0:].contiguous(), count[tile0:].contiguous(), 9,
             tile_size)
     t0 = _t0(T, tile_size * tile_size, cuda)
-    before = (rc.raster_fwd.launches, rc.raster_bwd.launches,
-              rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+    before = _launched(FWD, BWD, FWD_T0, BWD_T0)
     acc = rc.raster_fwd(*args, t0=t0, tile0=tile0)
     want = rc.raster_fwd_plain(*args, t0=t0, tile0=tile0)
     torch.cuda.synchronize()
@@ -147,8 +154,7 @@ def test_t0_kernels_match_plain_on_card(cuda, tile_size):
     again, again_t0 = rc.raster_bwd(*args, acc, gout, t0=t0, tile0=tile0)
     want, want_t0 = rc.raster_bwd_plain(*args, acc, gout, t0=t0, tile0=tile0)
     torch.cuda.synchronize()
-    assert (rc.raster_fwd.launches, rc.raster_bwd.launches,
-            rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0) == (
+    assert _launched(FWD, BWD, FWD_T0, BWD_T0) == (
         before[0], before[1], before[2] + 1, before[3] + 2)
     assert torch.equal(got, again) and torch.equal(got_t0, again_t0)
     assert bool(torch.isfinite(got).all() & torch.isfinite(got_t0).all())
@@ -166,13 +172,12 @@ def test_raster_op_with_t0_differentiates_on_card(cuda):
     s, start, count = _stream(16, 4, 4, cuda)
     leaf = s.clone().requires_grad_(True)
     t0 = _t0(16, 256, cuda).requires_grad_(True)
-    fwd, bwd = rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0
+    fwd, bwd = _launched(FWD_T0, BWD_T0)
     acc = rc.raster_op(leaf, start, count, 4, 16, t0=t0)
     weights = torch.linspace(0.5, 1.5, acc[:, :6].numel(),
                              device=cuda).reshape(acc[:, :6].shape)
     d_s, d_t0 = torch.autograd.grad((acc[:, :6] * weights).sum(), [leaf, t0])
-    assert (rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0) == (
-        fwd + 1, bwd + 1)
+    assert _launched(FWD_T0, BWD_T0) == (fwd + 1, bwd + 1)
     gout = torch.zeros_like(acc)
     gout[:, :6] = weights
     want, want_t0 = rc.raster_bwd_plain(s, start, count, 4, 16, acc.detach(),
@@ -188,14 +193,12 @@ def test_without_t0_the_unchanged_kernels_launch_on_card(cuda):
     accumulators and gradients."""
     s, start, count = _stream(32, 5, 4, cuda)
     args = (s, start, count, 5, 32)
-    before = (rc.raster_fwd.launches, rc.raster_bwd.launches,
-              rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0)
+    before = _launched(FWD, BWD, FWD_T0, BWD_T0)
     acc = rc.raster_fwd(*args)
     gout = torch.zeros_like(acc)
     gout[:, :5] = 1.0
     d = rc.raster_bwd(*args, acc, gout)
-    assert (rc.raster_fwd.launches, rc.raster_bwd.launches,
-            rc.raster_fwd.launches_t0, rc.raster_bwd.launches_t0) == (
+    assert _launched(FWD, BWD, FWD_T0, BWD_T0) == (
         before[0] + 1, before[1] + 1, before[2], before[3])
     assert bool((acc[:, 5:] == 0).all())
     ones = torch.ones(20, 1, 1024, device=cuda)
@@ -216,9 +219,9 @@ def test_backward_kernel_patch_cases_on_card(cuda, tile_size, with_t0):
     `gate_rows`, two launches bitwise equal, exact zeros for the closed
     tile."""
     import chip_smoke
-    before = (rc.raster_bwd.launches, rc.raster_bwd.launches_t0)
+    before = _launched(BWD, BWD_T0)
     chip_smoke.check_patch_cases(rc, tile_size, cuda, with_t0)
-    assert (rc.raster_bwd.launches, rc.raster_bwd.launches_t0) == (
+    assert _launched(BWD, BWD_T0) == (
         before[0] + 2 * (not with_t0), before[1] + 2 * with_t0)
 
 
@@ -237,9 +240,9 @@ def test_forward_kernel_patch_cases_on_card(cuda, tile_size, with_t0,
     and one of more ("image")."""
     import chip_smoke
     rows = chip_smoke.patch_tile_rows(cuda)[launch == "image"]
-    before = (rc.raster_fwd.launches, rc.raster_fwd.launches_t0)
+    before = _launched(FWD, FWD_T0)
     chip_smoke.check_fwd_patch_cases(rc, tile_size, cuda, with_t0, rows)
-    assert (rc.raster_fwd.launches, rc.raster_fwd.launches_t0) == (
+    assert _launched(FWD, FWD_T0) == (
         before[0] + 2 * (not with_t0), before[1] + 2 * with_t0)
 
 
@@ -323,9 +326,9 @@ def test_projection_kernel_matches_plain_on_card(cuda, color_mode,
     if options == "other":
         kw.update(scale_modifier=1.3, radius_min=2.0, radius_max=20.0)
     with torch.no_grad():
-        before = pj.project_fwd.launches
+        before = _launched(P1)
         got = pj.project_gaussians(g, camera, **kw)
-        assert pj.project_fwd.launches == before + 1
+        assert _launched(P1) == (before[0] + 1,)
         want = pj.project_gaussians_plain(g, camera, **kw)
     torch.cuda.synchronize()
     z = want.depth
@@ -366,9 +369,9 @@ def test_projection_bwd_kernel_matches_plain_on_card(cuda, color_mode,
     if options == "other":
         kw.update(scale_modifier=1.3, radius_min=2.0, radius_max=20.0)
     cots = chip_smoke.seeded_cotangents(g, 1)
-    before = pj.project_bwd.launches
+    before = _launched(P2)
     got = pj.project_bwd(g, camera, cots, **kw)
-    assert pj.project_bwd.launches == before + 1
+    assert _launched(P2) == (before[0] + 1,)
     _assert_gradients_match(got, g, camera, cots, kw, "P2")
     with torch.no_grad():
         plain = pj.project_gaussians_plain(g, camera, **kw)
@@ -403,8 +406,8 @@ def test_projection_kernel_on_a_misaligned_slice_on_card(cuda):
 
 
 def test_projection_with_grad_takes_the_chain_on_card(cuda):
-    """Parameters that require grad, with grad mode on, take
-    `_ProjectGraph`: one P1 launch forward, outputs bit for bit
+    """Parameters that require grad, with grad mode on, record the one
+    op's graph: one P1 launch forward, outputs bit for bit
     `project_fwd`'s, and one P2 launch backward, gradients as the chain's
     (a loss over the visible rows, so every other row's cotangent is 0),
     held by chip_smoke.py's `gate_gradients`.
@@ -423,7 +426,7 @@ def test_projection_with_grad_takes_the_chain_on_card(cuda):
         return p, dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
 
-    launches = lambda: (pj.project_fwd.launches, pj.project_bwd.launches)
+    launches = lambda: _launched(P1, P2)
     before = launches()
     got, got_grads = grads(pj.project_gaussians, camera)
     assert launches() == (before[0] + 1, before[1] + 1)

@@ -16,6 +16,7 @@ from mini3dgs_tpu.ops import projection as jproj
 from mini3dgs_tpu.ops import raster_pallas as jras
 from mini3dgs_tpu_torch import convert
 from mini3dgs_tpu_torch.ops import binning as tbin
+from mini3dgs_tpu_torch.ops import cuda_library
 from mini3dgs_tpu_torch.ops import projection as tproj
 from mini3dgs_tpu_torch.ops import raster_cuda as tras
 from tests.test_torch_core import (camera_pair, jax_gaussians, random_params,
@@ -91,9 +92,13 @@ def _pool(device="cpu"):
 @pytest.mark.parametrize("grad_mode", [True, False])
 @pytest.mark.parametrize("requires_grad", ["none", "xyz", "features_rest",
                                            "camera"])
-def test_needs_graph_rule(grad_mode, requires_grad):
-    """A graph is needed exactly when grad mode is on and some parameter or
-    camera tensor requires grad."""
+def test_the_op_records_a_graph_by_autograd(monkeypatch, grad_mode,
+                                            requires_grad):
+    """`project_fwd`'s one op records a graph exactly when grad mode is on
+    and a parameter requires grad (the camera is a constant to it), and its
+    forward gives what P1 writes.  On the CPU the kernel's launch is a fake
+    that writes the plain chain's values, and the device check lets CPU
+    tensors through."""
     g, camera = _pool()
     if requires_grad == "camera":
         camera = camera.replace(
@@ -101,9 +106,30 @@ def test_needs_graph_rule(grad_mode, requires_grad):
     elif requires_grad != "none":
         g = g.replace(**{requires_grad: getattr(g, requires_grad).clone()
                          .requires_grad_(True)})
+    kw = dict(color_mode="sh", sh_degree=3, antialias=True)
+    with torch.no_grad():
+        want = tproj.project_gaussians_plain(g, camera, **kw)
+    calls = []
+
+    def fake_launch(entry, device, *args):
+        calls.append(entry)
+        for out, value in zip(args[-len(want):], want):
+            out.copy_(value)
+
+    monkeypatch.setattr(tproj, "launch", fake_launch)
+    monkeypatch.setattr(tproj, "_check_fwd_args",
+                        lambda g, camera: g.xyz.device)
     with torch.set_grad_enabled(grad_mode):
-        assert tproj.needs_graph(g, camera) == (
-            grad_mode and requires_grad != "none")
+        got = tproj.project_fwd(g, camera, **kw)
+    assert calls == ["project_fwd_launch"]
+    graph = grad_mode and requires_grad in ("xyz", "features_rest")
+    for f in tproj.Projected._fields:
+        assert getattr(got, f).requires_grad == (
+            graph and f in tproj.COTANGENT_FIELDS), f
+    if graph:
+        assert type(got.means2d.grad_fn).__name__ == "_ProjectBackward"
+    for a, b in zip(got, want):
+        assert torch.equal(a.detach(), b)
 
 
 @pytest.mark.parametrize("grad_mode", [True, False])
@@ -159,25 +185,27 @@ def test_project_fwd_rejects_what_the_kernel_does_not_take(case):
     tensor on the kernel's path launches the kernel or raises, and CPU
     tensors always raise."""
     g, camera, kw, message = _bad_inputs(case)
-    before = tproj.project_fwd.launches
+    before = dict(cuda_library.LAUNCHES)
     with pytest.raises(ValueError, match=message):
         tproj.project_fwd(g, camera, **kw)
-    assert tproj.project_fwd.launches == before
+    assert cuda_library.LAUNCHES == before
 
 
 def test_project_bwd_rejects_what_the_kernel_does_not_take():
-    """P2's wrapper and the graph route check their inputs as P1's does,
-    before they load the library: CPU tensors always raise."""
-    before = (tproj.project_fwd.launches, tproj.project_bwd.launches)
+    """P2's wrapper, and P1's under a graph, check their inputs as P1's
+    does without one, before they load the library: CPU tensors always
+    raise."""
+    before = dict(cuda_library.LAUNCHES)
     for case in ("cpu", "float64", "rest_rows", "alive_dtype", "strided",
                  "camera_dtype", "devices", "color_mode"):
         g, camera, kw, message = _bad_inputs(case)
         cots = (None,) * len(tproj.COTANGENT_FIELDS)
         with pytest.raises(ValueError, match=message):
             tproj.project_bwd(g, camera, cots, **kw)
+        g = g.replace(opacity=g.opacity.clone().requires_grad_(True))
         with pytest.raises(ValueError, match=message):
-            tproj.project_graph(g, camera, **kw)
-    assert (tproj.project_fwd.launches, tproj.project_bwd.launches) == before
+            tproj.project_fwd(g, camera, **kw)
+    assert cuda_library.LAUNCHES == before
 
 
 @pytest.mark.parametrize("requires_grad", ["none", "params", "camera",
@@ -194,7 +222,7 @@ def test_route_rule_on_cpu_tensors(monkeypatch, requires_grad):
             raise AssertionError(f"{name} ran on CPU tensors")
         return wrapper
 
-    for name in ("project_fwd", "project_graph", "project_bwd"):
+    for name in ("project_fwd", "project_bwd", "launch"):
         monkeypatch.setattr(tproj, name, record(name))
     g, camera = _pool()
     if requires_grad in ("params", "both"):

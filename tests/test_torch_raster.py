@@ -18,6 +18,7 @@ from mini3dgs_tpu.ops import projection as jproj
 from mini3dgs_tpu.ops import raster_pallas as jras
 from mini3dgs_tpu.ops import raster_ref as jref
 from mini3dgs_tpu_torch import convert
+from mini3dgs_tpu_torch.ops import cuda_library
 from mini3dgs_tpu_torch.ops import raster_cuda as tras
 from mini3dgs_tpu_torch.ops import raster_ref as tref
 from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render
@@ -157,11 +158,11 @@ def edge_case_stream(tile_size, tiles_x=3, tiles_y=2, seed=0):
 def test_raster_fwd_plain_matches_sequential_loop(tile_size):
     s, starts, counts = edge_case_stream(tile_size)
     want = _sequential_raster(s, starts, counts, 3, tile_size)
-    launches = tras.raster_fwd.launches
+    launches = dict(cuda_library.LAUNCHES)
     got = tras.raster_fwd(torch.from_numpy(s), torch.from_numpy(starts),
                           torch.from_numpy(counts), 3, tile_size)
     assert got.shape == (6, 8, tile_size * tile_size)
-    assert tras.raster_fwd.launches == launches  # CPU tensors launch nothing
+    assert cuda_library.LAUNCHES == launches  # CPU tensors launch nothing
     np.testing.assert_allclose(t2n(got), want, atol=3e-5, rtol=1e-5)
     assert np.all(want[0] == 0) and np.all(t2n(got)[0] == 0)  # empty tile
     assert want[4, 4].min() > 0.995                  # saturated tile
@@ -184,9 +185,9 @@ def test_raster_fwd_rejects_bad_inputs():
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No fallback: where nvcc is missing the kernel library fails to build
     and says why."""
-    monkeypatch.setattr(tras, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(tras.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_library, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_library.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tras.kernel_library.__wrapped__()
+        cuda_library.kernel_library.__wrapped__()
     assert not list(tmp_path.iterdir())

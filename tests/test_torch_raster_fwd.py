@@ -18,6 +18,7 @@ import torch
 import chip_smoke
 from mini3dgs_tpu_torch import convert
 from mini3dgs_tpu_torch.ops import binning as B
+from mini3dgs_tpu_torch.ops import cuda_library as cl
 from mini3dgs_tpu_torch.ops import raster_cuda as rc
 from mini3dgs_tpu_torch.ops.projection import project_gaussians
 
@@ -165,16 +166,16 @@ def test_library_name_follows_the_headers(tmp_path):
     `raster_common.cuh` names a new library (and builds nothing); only the
     `.cu` files are compiled."""
     csrc = tmp_path / "csrc"
-    shutil.copytree(rc.CSRC_DIR, csrc)
-    first = rc.library_path(csrc)
-    assert first == rc.library_path() and first.parent == rc.BUILD_DIR
-    assert [p.name for p in rc.kernel_sources(csrc)] == [
+    shutil.copytree(cl.CSRC_DIR, csrc)
+    first = cl.library_path(csrc)
+    assert first == cl.library_path() and first.parent == cl.BUILD_DIR
+    assert [p.name for p in cl.kernel_sources(csrc)] == [
         "project_bwd.cu", "project_fwd.cu", "raster_bwd.cu", "raster_fwd.cu"]
     header = csrc / "raster_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    second = rc.library_path(csrc)
+    second = cl.library_path(csrc)
     assert second != first
     source = csrc / "raster_fwd.cu"
     source.write_text(source.read_text() + "\n")
-    assert rc.library_path(csrc) not in (first, second)
+    assert cl.library_path(csrc) not in (first, second)
     assert not second.exists()

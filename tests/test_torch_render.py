@@ -76,11 +76,21 @@ def test_ply_round_trip_between_packages(tmp_path):
 
 
 def _module_imports(path: Path):
+    """The modules that `path` (a file of the repository) imports, at any
+    depth of its tree: relative imports resolved against its package, and
+    `from m import n` as both m and m.n (n may be a module)."""
+    package = path.relative_to(REPO).parts[:-1]
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            parts = package[:len(package) + 1 - node.level] \
+                if node.level else ()
+            module = ".".join(parts + ((node.module,) if node.module
+                                       else ()))
+            if node.module:
+                yield module
+            yield from (f"{module}.{a.name}" for a in node.names)
 
 
 # The JAX-side scripts the port copies what it needs from (the port keeps
@@ -107,6 +117,30 @@ def test_port_imports_no_jax():
             assert not (parts[-1] in JAX_SIDE_SCRIPTS
                         and parts[:-1] in ([], ["scripts"])), \
                 f"{path} imports the JAX-side script {name}"
+
+
+def test_the_ports_imports_point_down():
+    """The layers' arrows: no module of `utils/` imports an op, the mesh or
+    the trainer; the projection does not import the raster; the kernel
+    library imports no op; only the kernel library loads a C library."""
+    pkg = REPO / "mini3dgs_tpu_torch"
+    name = lambda path: ".".join(path.relative_to(REPO).with_suffix("").parts)
+    imports = {name(path): set(_module_imports(path))
+               for path in pkg.rglob("*.py")}
+    up = lambda mods, layers: sorted(
+        m for m in mods for layer in layers
+        if (m + ".").startswith(f"mini3dgs_tpu_torch.{layer}."))
+    for module, mods in imports.items():
+        if module.startswith("mini3dgs_tpu_torch.utils."):
+            assert not up(mods, ("ops", "parallel", "train")), module
+        if module != "mini3dgs_tpu_torch.ops.cuda_library":
+            assert "ctypes" not in mods, module
+    assert not up(imports["mini3dgs_tpu_torch.ops.projection"],
+                  ("ops.raster_cuda",))
+    assert up(imports["mini3dgs_tpu_torch.ops.projection"],
+              ("ops.cuda_library",))
+    assert up(imports["mini3dgs_tpu_torch.ops.cuda_library"], ("ops",)) \
+        == []
 
 
 def _entry_args(tmp_path, device):

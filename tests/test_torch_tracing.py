@@ -10,8 +10,10 @@ the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py
 """
 
+import contextlib
 import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -20,7 +22,7 @@ import torch
 
 from mini3dgs_tpu_torch import convert
 from mini3dgs_tpu_torch.config import TrainingConfig
-from mini3dgs_tpu_torch.ops import raster_cuda as rc
+from mini3dgs_tpu_torch.ops import cuda_library
 from mini3dgs_tpu_torch.ops.renderer import RenderSettings, render
 from mini3dgs_tpu_torch.parallel import mesh
 from mini3dgs_tpu_torch.train.trainer import create_train_state, train_step
@@ -186,21 +188,54 @@ def test_projection_kernel_counter_only_where_it_launches():
     assert rec.counters()["instances"] > 0
 
 
-def test_launches_and_traffic_are_differences(monkeypatch):
-    monkeypatch.setattr(rc.raster_fwd, "launches", 40)
-    monkeypatch.setattr(rc.raster_bwd, "launches_t0", 7)
-    monkeypatch.setitem(mesh.TRAFFIC, "bytes", 1000)
+def test_launches_and_traffic_are_counted_where_they_happen(monkeypatch):
+    """Each launch through `cuda_library.launch` and each exchange of the
+    mesh adds to its running total and to the active recording, a step;
+    the raster's and the traffic's counters read 0 where nothing counted
+    them, and a launch that fails counts nothing.  The CPU has no library:
+    a stand-in's launchers record their arguments (a tensor goes as its
+    data pointer) and return 0, or a CUDA error."""
+    calls = []
+    lib = types.SimpleNamespace(
+        raster_fwd_launch=lambda *a: calls.append(a) or 0,
+        raster_bwd_t0_launch=lambda *a: calls.append(a) or 0,
+        raster_bwd_launch=lambda *a: 700)
+    monkeypatch.setattr(cuda_library, "kernel_library",
+                        lambda: types.SimpleNamespace(lib=lib))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=9))
+    monkeypatch.setattr(cuda_library, "LAUNCHES",
+                        dict.fromkeys(cuda_library.LAUNCHES, 40))
+    monkeypatch.setattr(mesh, "TRAFFIC",
+                        dict(mesh.TRAFFIC, calls=0, bytes=1000))
+    t = torch.zeros(3)
+    cuda_library.launch("raster_fwd_launch", t.device, t, 5)  # no recording
     with profiling.recording(device="cpu") as rec:
-        rc.raster_fwd.launches += 3
-        rc.raster_bwd.launches_t0 += 1
-        mesh.TRAFFIC["bytes"] += 64
+        for _ in range(3):
+            cuda_library.launch("raster_fwd_launch", t.device, t, 5)
+        cuda_library.launch("raster_bwd_t0_launch", t.device, None, t)
+        with pytest.raises(RuntimeError, match="raster_bwd_launch failed: "
+                                               "CUDA error 700"):
+            cuda_library.launch("raster_bwd_launch", t.device, t)
+        mesh._traffic(3, 64, time.perf_counter())
         profiling.step("step")(lambda: None)()
         profiling.step("step")(lambda: None)()
+    assert calls[0] == (t.data_ptr(), 5, 9) and calls[-1] == (
+        None, t.data_ptr(), 9)
     c = rec.counters()
     assert c["raster_fwd.launches"] == 1.5 and c["raster_bwd.launches"] == 0
     assert c["raster_bwd.launches_t0"] == 0.5
-    assert c["traffic.bytes"] == 32 and c["traffic.calls"] == 0
+    assert c["raster_fwd.launches_t0"] == 0
+    assert c["traffic.bytes"] == 32 and c["traffic.calls"] == 1.5
+    assert c["traffic.seconds"] >= 0
+    assert "projection_kernel" not in c
     assert "host_syncs" not in c  # not counted
+    assert cuda_library.LAUNCHES["raster_fwd.launches"] == 44
+    assert cuda_library.LAUNCHES["raster_bwd.launches"] == 40
+    assert cuda_library.LAUNCHES["raster_bwd.launches_t0"] == 41
+    assert mesh.TRAFFIC["bytes"] == 1064 and mesh.TRAFFIC["calls"] == 3
 
 
 def test_count_syncs_restores_mode_and_filters(monkeypatch):
@@ -279,7 +314,7 @@ def test_syncs_and_walls_on_the_card(card):
 
 @pytest.mark.cuda
 def test_train_step_keeps_the_projection_chain_on_the_card(card):
-    """A train step needs the projection's graph: it takes `_ProjectGraph`,
+    """A train step needs the projection's graph: its one op records it,
     and its recording counts one P1 (`projection_kernel`) and one P2
     (`projection_bwd_kernel`) launch; a render counts no P2."""
     _train_step(card)  # builds the kernels

@@ -31,7 +31,7 @@ from mini3dgs_tpu.train import trainer as jtrainer
 from mini3dgs_tpu_torch import config as tconfig
 from mini3dgs_tpu_torch import convert
 from mini3dgs_tpu_torch.core import gaussians as tgauss
-from mini3dgs_tpu_torch.ops import raster_cuda as tras
+from mini3dgs_tpu_torch.ops import cuda_library
 from mini3dgs_tpu_torch.ops import renderer as tren
 from mini3dgs_tpu_torch.train import density as tdensity
 from mini3dgs_tpu_torch.train import exposure as texposure
@@ -371,9 +371,9 @@ def test_train_step_matches_jax(use_pallas, tile_size):
     jstep, jstate, jcam, tstate, tcam, tc, tset = step_setup(use_pallas,
                                                              tile_size)
     before = convert.gaussians_to_numpy(tstate.gaussians)[0]
-    launches = (tras.raster_fwd.launches, tras.raster_bwd.launches)
+    launches = dict(cuda_library.LAUNCHES)
     tnew, tm = ttrainer.train_step(tstate, tcam, tc, tset)
-    assert (tras.raster_fwd.launches, tras.raster_bwd.launches) == launches
+    assert cuda_library.LAUNCHES == launches
     jnew, jm = jstep(jstate, jcam)
 
     for k in ("l1", "dssim", "total_loss"):
